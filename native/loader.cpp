@@ -1,8 +1,8 @@
 // tpuimg native runtime: image decode/encode + threaded streaming prefetcher.
 //
-// Role: the TPU-native equivalent of the reference's host-side C++ layer.
+// Role: the equivalent of the reference's host-side C++ layer.
 // The reference's demos load frames synchronously through OpenCV on the host
-// (e.g. Histogram/main.cpp:90, GaussianFilter/gaussian.cu:426); on TPU the
+// (e.g. Histogram/main.cpp:90, GaussianFilter/gaussian.cu:426); here the
 // compute path is JAX/XLA, so the native layer's job is feeding it — decode
 // on worker threads into a bounded ring of pinned-size frame slots so device
 // transfers overlap decode. Exposed as a C ABI consumed via ctypes

@@ -20,13 +20,13 @@ def test_cli_integral(capsys):
     assert main(["integral", "--width", "128", "--height", "64",
                  "--nreps", "2"]) == 0
     out = capsys.readouterr().out
-    assert "integral[xla]" in out and "maxdiff=0" in out
+    assert "integral" in out and "maxdiff=0" in out
+    assert "time: not measured (cpu)" in out
 
 
 def test_cli_autotest(tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
-    assert main(["integral-autotest", "--runs", "2", "--max-size", "200",
-                 "--impl", "xla"]) == 0
+    assert main(["integral-autotest", "--runs", "2", "--max-size", "200"]) == 0
     assert os.path.exists(tmp_path / "res.log")
 
 
@@ -36,7 +36,7 @@ def test_cli_autotest_bucketed(tmp_path, monkeypatch, capsys):
     full padded frame is verified against the padded oracle)."""
     monkeypatch.chdir(tmp_path)
     assert main(["integral-autotest", "--runs", "3", "--max-size", "200",
-                 "--impl", "xla", "--bucket", "128"]) == 0
+                 "--bucket", "128"]) == 0
     log = (tmp_path / "res.log").read_text()
     lines = log.strip().splitlines()
     assert len(lines) == 3
@@ -101,7 +101,7 @@ def test_cli_tolerance_autotests(tmp_path, monkeypatch, capsys):
 
 def test_cli_he(gray_png, capsys):
     assert main(["he", gray_png, "--nreps", "2"]) == 0
-    assert os.path.exists(gray_png.replace(".png", "_tpuhe.png"))
+    assert os.path.exists(gray_png.replace(".png", "_he.png"))
 
 
 def test_cli_gaussian(capsys):
@@ -123,15 +123,14 @@ def test_cli_sweep(tmp_path, monkeypatch, capsys):
 
 
 def test_cli_enhance_demo(gray_png, capsys):
-    """The flagship demo runs the 3-rung impl ladder (fused / fused1 /
-    staged), verifies each vs the composed oracle, and writes the PNGs."""
+    """The flagship demo runs both forms (fused / staged), verifies each vs
+    the composed oracle, and writes the PNGs."""
     assert main(["enhance", gray_png, "--tiles", "4", "--gf-radius", "4",
                  "--nreps", "2"]) == 0
     out = capsys.readouterr().out
-    assert ("enhance[fused]" in out and "enhance[fused1]" in out
-            and "enhance[staged]" in out)
-    assert out.count("[OK]") == 3
-    for impl in ("fused", "fused1", "staged"):
+    assert "enhance[fused]" in out and "enhance[staged]" in out
+    assert out.count("[OK]") == 2
+    for impl in ("fused", "staged"):
         assert os.path.exists(gray_png.replace(".png", f"_enhance_{impl}.png"))
 
 

@@ -1,30 +1,20 @@
-"""Golden-image regression against the reference's data/ PNGs (SURVEY §4.3).
+"""Golden-image regression on a real photograph (SURVEY §4.3).
 
 The reference writes per-variant result PNGs from its demos and re-reads them
 as visual fixtures (GaussianFilter/gaussian.cu:641-662, Histogram/
 main.cpp:171-185, Morphology/main.cpp:92-95, GuidedFilter/main.cpp:295-304).
-These tests replay the demos' preprocessing on the surviving inputs and
-assert against the stored outputs. Established facts (see
-.claude/skills/verify/SKILL.md and KNOWN_DIVERGENCES.md):
+Here the fixture is the night scene in ``docs/gallery/`` (a 1456x816 gray
+frame) with the gallery's result PNGs beside it. Each op is checked on it
+against the NumPy oracle, against OpenCV where OpenCV computes the same
+thing, and against the stored gallery output.
 
-- night_cvhe.png == cv2.equalizeHist(night_gray.png) exactly — inputs good.
-- night_cudahe.png embeds a REFERENCE BUG (gCalcHistUnroll8's in-loop return
-  drops the last x-block of each row band, image_process.cu:54-58). We
-  implement the intended algorithm: expect maxdiff ≈ 9 vs that golden.
+Established facts (KNOWN_DIVERGENCES.md):
 - Our HE uses the CUDA table formula rint(min(255, cdf*256/N))
   (image_process.cu:115-123), which differs from cv2.equalizeHist's
-  (cdf-cdfmin)*255/(N-cdfmin): measured maxdiff 5 on night_gray.
-- sample_cv_clahe.png is NOT reproducible by any cv2.createCLAHE sweep
-  (best 31) though sample_L.png regenerates exactly from sample.jpg —
-  the CLAHE goldens predate the current reference code (stale; skipped).
-- The GuidedFilter goldens adobe_image_4_{cures,myres}.png were produced by
-  cudaSmallGuidedDemo (main.cpp:180-304) at radius=7, eps=0.3 on 3840x2160
-  grayscale resizes (established by a radius scan: r=7 matches within 1 gray
-  step, r=3 differs by 72).
-- GaussianFilter/data and Morphology/data only retain OUTPUT images; the
-  inputs (waterfall*.png, sea.png) are stripped (.MISSING_LARGE_BLOBS), so
-  those goldens cannot be regenerated — the output PNGs are used as real
-  photographic INPUTS against the line-by-line oracle instead.
+  (cdf-cdfmin)*255/(N-cdfmin): 3 gray levels on this frame.
+- The gallery's gaussian/guided/enhance PNGs went through a float → u8
+  rint, so a last-ulp difference in summation order can move a pixel one
+  gray level.
 """
 
 import os
@@ -35,120 +25,105 @@ import pytest
 cv2 = pytest.importorskip("cv2")
 
 import tpuimg
-from tpuimg.oracle import clahe_ref, dilate_ref, erode_ref, gaussian_ref
+from tpuimg.oracle import (clahe_ref, close_ref, dilate_ref, erode_ref,
+                           gaussian_ref, guided_filter_ref, hist_equalize_ref,
+                           integral_ref, open_ref)
 
-REF = "/root/reference"
+GALLERY = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "docs", "gallery")
 
 
-def _png(path, flags=cv2.IMREAD_GRAYSCALE):
-    img = cv2.imread(os.path.join(REF, path), flags)
-    if img is None:
-        pytest.skip(f"reference fixture missing: {path}")
+def _png(name):
+    img = cv2.imread(os.path.join(GALLERY, name), cv2.IMREAD_UNCHANGED)
+    assert img is not None, f"missing fixture docs/gallery/{name}"
     return img
 
 
-def test_he_golden_night():
-    gray = _png("Histogram/data/night_gray.png")
-    cvhe = _png("Histogram/data/night_cvhe.png")
-    ours = np.asarray(tpuimg.hist_equalize(gray))
-    # cv2's equalizeHist table formula differs from the CUDA one we
-    # implement (see module docstring): 5 gray levels on this image
-    assert np.abs(ours.astype(int) - cvhe.astype(int)).max() <= 6
+@pytest.fixture(scope="module")
+def night():
+    return _png("night_input.png")
 
 
-def test_he_golden_night_cuda_bug_not_replicated():
-    """The reference's own HE output embeds its histogram undercount bug;
-    our intended-algorithm output must stay close to but NOT equal it."""
-    gray = _png("Histogram/data/night_gray.png")
-    cudahe = _png("Histogram/data/night_cudahe.png")
-    ours = np.asarray(tpuimg.hist_equalize(gray))
-    d = np.abs(ours.astype(int) - cudahe.astype(int)).max()
-    assert 0 < d <= 12  # measured 9: bug-free result, same tone curve
+def _u8(f):
+    return np.clip(np.rint(f * 255.0), 0, 255).astype(np.uint8)
 
 
-def test_lab_l_channel_matches_reference_fixture():
-    """sample_L.png is cv2.cvtColor(sample.jpg, BGR2Lab)[..., 0] exactly;
-    our on-device Lab conversion must reproduce it within one step."""
-    from tpuimg.ops.color import bgr_to_lab
-
-    bgr = _png("Histogram/data/sample.jpg", cv2.IMREAD_COLOR)
-    L = _png("Histogram/data/sample_L.png")
-    ours = np.asarray(bgr_to_lab(bgr))[..., 0]
-    assert np.abs(ours.astype(int) - L.astype(int)).max() <= 1
+def _maxdiff(a, b):
+    return np.abs(np.asarray(a).astype(np.float64)
+                  - np.asarray(b).astype(np.float64)).max()
 
 
-def test_clahe_golden_sample():
-    L = _png("Histogram/data/sample_L.png")
-    ours = np.asarray(tpuimg.clahe(L, 40.0, 8, 8, impl="xla"))
-    ref = clahe_ref(L, 40.0, 8, 8)
-    assert np.abs(ours.astype(int) - ref.astype(int)).max() <= 1
+def test_he_golden_night(night):
+    ours = np.asarray(tpuimg.hist_equalize(night))
+    np.testing.assert_array_equal(ours, hist_equalize_ref(night))
+    np.testing.assert_array_equal(ours, _png("night_he.png"))
+    # cv2's table formula differs from the CUDA one (module docstring)
+    assert _maxdiff(ours, cv2.equalizeHist(night)) <= 6
 
 
-@pytest.mark.skip(reason="sample_cv_clahe.png is stale: not reproducible by "
-                  "any cv2.createCLAHE clip/grid sweep (best maxdiff 31) "
-                  "although sample_L.png regenerates exactly — the golden "
-                  "predates the current reference code (KNOWN_DIVERGENCES #4)")
-def test_clahe_golden_stale():
-    pass
+def test_clahe_golden_night(night):
+    ours = np.asarray(tpuimg.clahe(night, 2.0, 8, 8))
+    assert _maxdiff(ours, clahe_ref(night, 2.0, 8, 8)) <= 1
+    assert _maxdiff(ours, _png("night_clahe.png")) <= 1
 
 
-def test_guided_golden_adobe():
-    """Replay cudaSmallGuidedDemo (main.cpp:180-304): gray /255 resize to
-    3840x2160, fused chain r=7 eps=0.3, *255 to u8. Both the CUDA output
-    (_cures) and the handwritten cv::blur chain (_myres) must match within
-    one gray step."""
-    src = _png("GuidedFilter/data/adobe_image_4.jpg").astype(np.float32) / 255
-    gd = _png("GuidedFilter/data/adobe_gt_4.jpg").astype(np.float32) / 255
-    src = cv2.resize(src, (3840, 2160))
-    gd = cv2.resize(gd, (3840, 2160))
-    cures = _png("GuidedFilter/data/adobe_image_4_cures.png")
-    myres = _png("GuidedFilter/data/adobe_image_4_myres.png")
-    q = np.asarray(tpuimg.guided_filter(gd, src, 7, 0.3, border="reflect101",
-                                        impl="xla"))
-    q8 = np.clip(np.rint(q * 255), 0, 255).astype(np.uint8)
-    assert np.abs(q8.astype(int) - cures.astype(int)).max() <= 1
-    assert np.abs(q8.astype(int) - myres.astype(int)).max() <= 1
+def test_gaussian_golden_night(night):
+    f = night.astype(np.float32) / 255
+    ours = np.asarray(tpuimg.gaussian(f, 3, 2.0))
+    assert _maxdiff(ours, gaussian_ref(f, 3, 2.0)) < 1e-5
+    cv = cv2.GaussianBlur(f, (7, 7), 2.0, borderType=cv2.BORDER_REFLECT_101)
+    assert _maxdiff(ours, cv) < 1e-5
+    assert _maxdiff(_u8(ours), _png("night_gauss_r3.png")) <= 1
 
 
-@pytest.mark.skip(reason="GaussianFilter/data retains only OUTPUT PNGs; the "
-                  "waterfall input images are stripped from the reference "
-                  "checkout (.MISSING_LARGE_BLOBS) so the goldens cannot be "
-                  "regenerated. Real-image gaussian behavior is locked by "
-                  "test_gaussian_on_reference_photo instead.")
-def test_gaussian_golden_waterfall():
-    pass
+def test_guided_golden_night(night):
+    f = night.astype(np.float32) / 255
+    ours = np.asarray(tpuimg.guided_filter(f, f, 8, 1e-3))  # shrink border
+    assert _maxdiff(ours, guided_filter_ref(f, f, 8, 1e-3)) < 1e-3
+    assert _maxdiff(_u8(ours), _png("night_guided_r8.png")) <= 1
 
 
-def test_gaussian_on_reference_photo():
-    """Real-photograph regression: the surviving waterfall_optim.png output
-    serves as a photographic INPUT against the oracle."""
-    img = _png("GaussianFilter/data/waterfall_optim.png").astype(
-        np.float32) / 255
-    out = np.asarray(tpuimg.gaussian(img, 2, 1.5))
-    assert np.abs(out - gaussian_ref(img, 2, 1.5)).max() < 1e-5
-
-
-@pytest.mark.skip(reason="Morphology/data retains only OUTPUT PNGs (sea.png "
-                  "input stripped, .MISSING_LARGE_BLOBS); goldens cannot be "
-                  "regenerated. Real-image morphology is locked by "
-                  "test_morphology_on_reference_photo.")
-def test_morphology_golden_sea():
-    pass
-
-
-def test_morphology_golden_fixture_consistency():
-    """The reference demo prints maxdiff between its CUDA and cv outputs
-    (Morphology/main.cpp:103); the stored pairs must agree exactly — this
-    pins the fixtures themselves against silent corruption."""
-    for mode in (0, 1):
-        cv_g = _png(f"Morphology/data/cv_gray_{mode}.png")
-        cu_g = _png(f"Morphology/data/cuda_gray_{mode}.png")
-        np.testing.assert_array_equal(cv_g, cu_g)
-
-
-def test_morphology_on_reference_photo():
-    img = _png("Morphology/data/cv_gray_0.png")
+def test_erode_golden_night(night):
+    ours = np.asarray(tpuimg.erode(night, 5))
+    np.testing.assert_array_equal(ours, erode_ref(night, 5))
+    se = np.ones((11, 11), np.uint8)
     np.testing.assert_array_equal(
-        np.asarray(tpuimg.erode(img, 7)), erode_ref(img, 7))
-    np.testing.assert_array_equal(
-        np.asarray(tpuimg.dilate(img, 7)), dilate_ref(img, 7))
+        ours, cv2.erode(night, se, borderType=cv2.BORDER_REPLICATE))
+    np.testing.assert_array_equal(ours, _png("night_erode_r5.png"))
+
+
+@pytest.mark.parametrize("op,radius", [("dilate", 7), ("open", 15),
+                                       ("close", 15)])
+def test_morphology_night_vs_opencv(night, op, radius):
+    fn, ref, cv_op = {
+        "dilate": (tpuimg.dilate, dilate_ref, None),
+        "open": (tpuimg.morph_open, open_ref, cv2.MORPH_OPEN),
+        "close": (tpuimg.morph_close, close_ref, cv2.MORPH_CLOSE),
+    }[op]
+    ours = np.asarray(fn(night, radius))
+    np.testing.assert_array_equal(ours, ref(night, radius))
+    se = np.ones((2 * radius + 1,) * 2, np.uint8)
+    cv = (cv2.dilate(night, se, borderType=cv2.BORDER_REPLICATE)
+          if cv_op is None else
+          cv2.morphologyEx(night, cv_op, se, borderType=cv2.BORDER_REPLICATE))
+    np.testing.assert_array_equal(ours, cv)
+
+
+def test_integral_golden_night(night):
+    ours = np.asarray(tpuimg.integral(night))
+    np.testing.assert_array_equal(ours, integral_ref(night))
+    np.testing.assert_array_equal(ours, cv2.integral(night)[1:, 1:])
+
+
+def test_enhance_golden_night(night):
+    """The staged chain against the composed oracles (the enhance-autotest
+    contract, ≤2 gray levels end to end) and the stored gallery frame."""
+    from tpuimg.pipeline import enhance
+
+    ours = np.asarray(enhance(night, impl="staged"))
+    eq = clahe_ref(night, 2.0, 8, 8)
+    f = eq.astype(np.float32) / np.float32(255.0)
+    q = guided_filter_ref(f, gaussian_ref(f, 2, 1.5), 8, 1e-3,
+                          border="reflect101")
+    assert _maxdiff(ours, _u8(q)) <= 2
+    assert _maxdiff(ours, _png("night_enhance.png")) <= 2

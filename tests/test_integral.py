@@ -13,9 +13,8 @@ def test_integral_exact(rng):
 def test_integral_fuzz_shapes(rng):
     # Mirrors the reference's randomized-size property test (autoTestDemo,
     # Integral/main.cpp:154-237). The full [64, 6000] range runs on the
-    # real chip via `python -m tpuimg integral-autotest` (res.log); here
-    # [64, 2000) keeps the hermetic CPU run fast while still crossing
-    # multiple band boundaries.
+    # accelerator via `python -m tpuimg integral-autotest` (res.log); here
+    # [64, 2000) keeps the hermetic CPU run fast.
     for _ in range(8):
         h, w = rng.integers(64, 2000, size=2)
         img = rng.integers(0, 256, (int(h), int(w)), dtype=np.uint8)
@@ -29,30 +28,8 @@ def test_integral_batched(rng):
         np.testing.assert_array_equal(out[i], integral_ref(imgs[i]))
 
 
-def test_pick_k_properties():
-    # Block selection for the sub-banded scan (kernels/scan2d.py, probe
-    # r3l): k >= 1, the block respects the block*W VMEM cap (except the
-    # k=1 minimum), and k never trades away zero row padding.
-    from tpuimg.core.layout import round_up
-    from tpuimg.kernels.scan2d import _MAX_BLOCK_PX, _SUB, _pick_k
-
-    for h in (1, 10, 24, 97, 168, 1080, 2160, 4320, 5999):
-        for w in (64, 128, 3840, 6144, 7680):
-            wp = round_up(w, 128)
-            k = _pick_k(h, wp)
-            assert k >= 1
-            if k > 1:
-                assert _SUB * k * wp <= _MAX_BLOCK_PX
-            # no k' in range would pad fewer rows than the chosen k
-            kmax = max(1, min(10, _MAX_BLOCK_PX // (_SUB * wp)))
-            best_pad = min(round_up(h, _SUB * kk) - h
-                           for kk in range(1, kmax + 1))
-            assert round_up(h, _SUB * k) - h == best_pad
-
-
 def test_integral_tiny_and_prime_heights(rng):
-    # heights around/below one sub-band and prime multiples of _SUB,
-    # where the k heuristic degenerates to small blocks
+    # single rows/columns, tiny frames and prime sides
     for h, w in ((1, 1), (7, 300), (24, 24), (168, 520), (25, 129)):
         img = rng.integers(0, 256, (h, w), dtype=np.uint8)
         np.testing.assert_array_equal(np.asarray(integral(img)),

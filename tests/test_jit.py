@@ -1,131 +1,37 @@
-"""core.jit.op_jit: backend dispatch, nesting, wrapper API."""
+"""The public ops are plain ``jax.jit`` functions: each traces inside a
+caller's own jit (nested jit inlines) and gives the direct call's result."""
 
 import jax
-import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from tpuimg.core.jit import TPU_COMPILER_OPTIONS, op_jit
+import tpuimg
+from tpuimg.pipeline import enhance
 
-
-def test_op_jit_basic_and_static():
-    @op_jit(static_argnames=("k",))
-    def f(x, k: int):
-        return x * k
-
-    out = np.asarray(f(jnp.arange(4.0), 3))
-    np.testing.assert_allclose(out, [0, 3, 6, 9])
-
-
-def test_op_jit_nested_inside_user_jit():
-    # a user jitting over a tpuimg op must not trip the "compiler_options
-    # on a nested jit" error (round 3: ops call other op_jit'd ops)
-    @op_jit()
-    def inner(x):
-        return x + 1
-
-    @jax.jit
-    def outer(x):
-        return inner(x) * 2
-
-    assert float(outer(jnp.float32(1.0))) == 4.0
+CASES = [
+    ("gaussian", lambda x: tpuimg.gaussian(x, 2, 1.5), "f32"),
+    ("box_filter", lambda x: tpuimg.box_filter(x, 3), "f32"),
+    ("guided_self", lambda x: tpuimg.guided_filter(
+        x, x, 4, 1e-3, border="reflect101"), "f32"),
+    ("integral", tpuimg.integral, "u8"),
+    ("hist_equalize", tpuimg.hist_equalize, "u8"),
+    ("clahe", lambda x: tpuimg.clahe(x, 2.0, 4, 4), "u8"),
+    ("morph_open", lambda x: tpuimg.morph_open(x, 3), "u8"),
+    ("enhance", lambda x: enhance(x, 2.0, 4, 2, 1.5, 4, 1e-3), "u8"),
+]
 
 
-def test_op_jit_nested_op_jit():
-    @op_jit()
-    def inner(x):
-        return x + 1
-
-    @op_jit()
-    def outer(x):
-        return inner(x) * 2
-
-    assert float(outer(jnp.float32(2.0))) == 6.0
-
-
-def test_op_jit_clear_cache():
-    @op_jit()
-    def f(x):
-        return x
-
-    f(jnp.zeros(2))
-    f.clear_cache()  # the jax.jit wrapper API tests rely on
-
-
-def test_tpu_options_contain_scoped_vmem():
-    # the 4K enhance pipeline needs >16M scoped vmem (core/jit.py docstring)
-    assert TPU_COMPILER_OPTIONS["xla_tpu_scoped_vmem_limit_kib"] > 16 * 1024
-
-
-def _fresh_state():
-    import threading
-
-    return {"raised_sigs": set(), "lock": threading.Lock()}
-
-
-def test_vmem_fallback_sticky_per_signature():
-    # the raised-limit variant costs guided r8 ~15% (vmem_limit_probe), so
-    # it must engage ONLY on the vmem-stack compile failure — and stick for
-    # THAT signature only, not tax every other shape of the op (round-3
-    # advisor finding)
-    import numpy as np
-
-    from tpuimg.core.jit import _vmem_fallback_call
-
-    calls = []
-    big = np.zeros((8, 8), np.float32)
-    small = np.zeros((2, 2), np.float32)
-
-    def plain(x):
-        calls.append(("plain", x.shape))
-        if x.shape == (8, 8):
-            raise RuntimeError(
-                "Ran out of memory in memory space vmem while allocating on "
-                "stack for %guided_filter_pallas")
-        return 0
-
-    def raised(x):
-        calls.append(("raised", x.shape))
-        return 1
-
-    state = _fresh_state()
-    assert _vmem_fallback_call(state, plain, raised, (big,), {}) == 1
-    # same signature: straight to raised, no failed compile attempt
-    assert _vmem_fallback_call(state, plain, raised, (big,), {}) == 1
-    # different signature: still plain
-    assert _vmem_fallback_call(state, plain, raised, (small,), {}) == 0
-    assert calls == [("plain", (8, 8)), ("raised", (8, 8)),
-                     ("raised", (8, 8)), ("plain", (2, 2))]
-
-
-def test_vmem_fallback_reraises_other_errors():
-    import numpy as np
-    import pytest
-
-    from tpuimg.core.jit import _vmem_fallback_call
-
-    def plain(x):
-        raise ValueError("some unrelated failure")
-
-    state = _fresh_state()
-    arg = np.zeros((2,), np.float32)
-    with pytest.raises(ValueError, match="unrelated"):
-        _vmem_fallback_call(state, plain, lambda x: x, (arg,), {})
-    assert not state["raised_sigs"]  # no sticky switch on unrelated errors
-
-
-def test_vmem_fallback_ignores_runtime_vmem_errors():
-    # runtime vmem exhaustion (no "allocating on stack") can't be fixed by
-    # the raised limit: no retry, no sticky flip (round-3 advisor finding)
-    import numpy as np
-    import pytest
-
-    from tpuimg.core.jit import _vmem_fallback_call
-
-    def plain(x):
-        raise RuntimeError("Ran out of memory in memory space vmem")
-
-    state = _fresh_state()
-    arg = np.zeros((2,), np.float32)
-    with pytest.raises(RuntimeError, match="memory space vmem"):
-        _vmem_fallback_call(state, plain, lambda x: 1, (arg,), {})
-    assert not state["raised_sigs"]
+@pytest.mark.parametrize("name,fn,kind", CASES, ids=[c[0] for c in CASES])
+def test_op_inside_user_jit(rng, name, fn, kind):
+    if kind == "u8":
+        x = rng.integers(0, 256, (48, 72), dtype=np.uint8)
+    else:
+        x = rng.random((48, 72), dtype=np.float32)
+    direct = np.asarray(fn(x))
+    nested = np.asarray(jax.jit(fn)(x))
+    assert nested.dtype == direct.dtype and nested.shape == direct.shape
+    if direct.dtype == np.float32:
+        # last-ulp reassociation of the inlined float program
+        assert np.abs(nested - direct).max() <= 1e-6
+    else:
+        np.testing.assert_array_equal(nested, direct)

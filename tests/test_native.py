@@ -24,8 +24,11 @@ def test_rgb_roundtrip(rng, tmp_path):
 
 
 def test_png_decode_matches_opencv(tmp_path):
+    import os
+
     cv2 = pytest.importorskip("cv2")
-    path = "/root/reference/Histogram/data/sample_L.png"
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "docs", "gallery", "night_input.png")
     ours = native.read_image(path, gray=True)
     ref = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
     np.testing.assert_array_equal(ours, ref)

@@ -67,8 +67,7 @@ def test_guided_sharded_matches_local(rng, mesh):
     for r in (2, 7):
         op = guided_filter_sharded(mesh, r, 1e-3)
         out = np.asarray(jax.jit(op)(shard_rows(mesh, I), shard_rows(mesh, p)))
-        ref = np.asarray(guided_filter(I, p, r, 1e-3, border=REFLECT101,
-                                       impl="xla"))
+        ref = np.asarray(guided_filter(I, p, r, 1e-3, border=REFLECT101))
         assert np.abs(out - ref).max() < 1e-5, r
 
 
@@ -82,8 +81,7 @@ def test_guided_sharded_self_guided(rng, mesh):
     op = guided_filter_sharded(mesh, 4, 1e-3, self_guided=True)
     Is = shard_rows(mesh, I)
     out = np.asarray(jax.jit(op)(Is))
-    ref = np.asarray(guided_filter(I, I.copy(), 4, 1e-3, border=REFLECT101,
-                                   impl="xla"))
+    ref = np.asarray(guided_filter(I, I.copy(), 4, 1e-3, border=REFLECT101))
     assert np.abs(out - ref).max() < 1e-5
 
 
@@ -96,21 +94,21 @@ def test_clahe_sharded_matches_local(rng, mesh):
     for xt, yt, clip in [(8, 8, 2.0), (6, 6, 3.0), (4, 8, 40.0)]:
         op = clahe_sharded(mesh, clip, xt, yt)
         out = np.asarray(jax.jit(op)(shard_rows(mesh, img)))
-        ref = np.asarray(clahe(img, clip, xt, yt, impl="xla"))
+        ref = np.asarray(clahe(img, clip, xt, yt))
         d = np.abs(out.astype(int) - ref.astype(int)).max()
         assert d <= 1, (xt, yt, clip, d)  # fma/ordering tolerance
 
 
 def test_clahe_sharded_pad_spans_tiles(rng, mesh):
     # dense grid on a short image: th=3, pad_top=6 >= th, so the reflect
-    # extension rows span multiple y-tiles (round-2 review: they were all
+    # extension rows span multiple y-tiles (they were once all
     # credited to tile 0 / ytiles-1, maxdiff 128 vs local)
     from tpuimg import clahe
 
     img = rng.integers(0, 256, (36, 64), dtype=np.uint8)
     op = clahe_sharded(mesh, 4.0, 4, 16)
     out = np.asarray(jax.jit(op)(shard_rows(mesh, img)))
-    ref = np.asarray(clahe(img, 4.0, 4, 16, impl="xla"))
+    ref = np.asarray(clahe(img, 4.0, 4, 16))
     d = np.abs(out.astype(int) - ref.astype(int)).max()
     assert d <= 1, d
 
@@ -148,14 +146,14 @@ def test_sharded_ops_validate_inputs(rng, mesh):
             rng.integers(0, 256, (2, 3, 16, 64), dtype=np.uint8))
     with pytest.raises(ParamError):
         # tile grid needs more reflect pad than the image can provide —
-        # same typed error as the single-device clahe (advisor round 2)
+        # same typed error as the single-device clahe
         clahe_sharded(mesh, 2.0, 8, 64)(
             rng.integers(0, 256, (16, 64), dtype=np.uint8))
     with pytest.raises(ParamError):
         guided_filter_sharded(mesh, 4, 0.0)
     with pytest.raises(TypeError):
         # forgotten source on a non-self-guided factory must not silently
-        # run the self-guided filter (advisor round 2)
+        # run the self-guided filter
         guided_filter_sharded(mesh, 4, 1e-3)(f32)
     with pytest.raises(ParamError):
         guided_filter_sharded(mesh, 0, 1e-3)
@@ -215,7 +213,7 @@ def test_enhance_sharded_validates_inputs(rng, mesh):
 
 
 def test_clahe_sharded_arbitrary_rows(rng, mesh):
-    # H=70 does NOT divide over sp=4 (VERDICT r3 item 7): the factory pads
+    # H=70 does NOT divide over sp=4: the factory pads
     # rows to a shard multiple, masks pad rows out of every tile histogram,
     # and crops the mapped output
     import jax.numpy as jnp
@@ -228,7 +226,7 @@ def test_clahe_sharded_arbitrary_rows(rng, mesh):
         # an uneven H cannot be row-sharded by the caller — pass the frame
         # with default sharding; the factory pads and shard_map distributes
         out = np.asarray(jax.jit(op)(jnp.asarray(img)))
-        ref = np.asarray(clahe(img, 4.0, *grid, impl="xla"))
+        ref = np.asarray(clahe(img, 4.0, *grid))
         assert out.shape == ref.shape
         d = np.abs(out.astype(int) - ref.astype(int)).max()
         assert d <= 1, (h, grid, d)

@@ -106,19 +106,3 @@ def test_cli_stream_gaussian_rounding(frame_dir, tmp_path):
     ref = np.clip(np.rint(np.asarray(tpuimg.gaussian(src, 2, 1.5)) * 255.0),
                   0, 255).astype(np.uint8)
     np.testing.assert_array_equal(got, ref)
-
-
-# profiling coverage lives here (NOT in test_oracle_vs_opencv, whose
-# module-level cv2 importorskip would silently skip it without cv2)
-def test_profiling_stage_times(rng):
-    import jax.numpy as jnp
-
-    from tpuimg import gaussian
-    from tpuimg.profiling import stage_times
-
-    x = jnp.asarray(rng.random((64, 64), dtype=np.float32))
-    res = stage_times(
-        [("blur", lambda v: gaussian(v, 1, 1.0)),
-         ("blur2", lambda v: gaussian(v, 2, 1.5))], x, iters=3)
-    assert set(res) == {"blur", "blur2", "chained"}
-    assert all(v >= 0 for v in res.values())

@@ -61,9 +61,9 @@ def test_integral_rejects_float():
 
 
 def test_integral_wide_int_exact(rng):
-    # non-u8 integer input routes to the exact int32 XLA path under "auto"
+    # non-u8 integer input takes the same exact int32 path
     img = rng.integers(0, 2**20, (33, 47)).astype(np.int32)
-    out = np.asarray(tpuimg.integral(img, impl="auto"))
+    out = np.asarray(tpuimg.integral(img))
     ref = np.cumsum(np.cumsum(img.astype(np.int64), 1), 0)
     np.testing.assert_array_equal(out, ref.astype(np.int32))
 
@@ -74,37 +74,17 @@ def test_guided_shape_mismatch_rejected(rng):
                              np.zeros((16, 18), np.float32), 2, 1e-3)
 
 
-def test_guided_pallas_rejects_shrink_border(rng):
-    # impl='pallas' implements the fused reflect-101 semantics only; a
-    # silent border mismatch would return wrong edge pixels
-    I = rng.random((32, 32), dtype=np.float32)
-    with pytest.raises(ParamError, match="reflect101"):
-        tpuimg.guided_filter(I, I, 2, 1e-3, impl="pallas")  # border=shrink
-
-
 def test_guided_auto_small_image_falls_back(rng):
-    # h <= 2r would overflow the fused kernel's reflect pad; auto must
-    # route to XLA and succeed
+    # h <= 2r: the reflect-101 window reaches past the frame twice over;
+    # the filter must still succeed
     I = rng.random((20, 200), dtype=np.float32)
-    out = np.asarray(tpuimg.guided_filter(I, I, 12, 1e-3, border="reflect101",
-                                          impl="auto"))
+    out = np.asarray(tpuimg.guided_filter(I, I, 12, 1e-3, border="reflect101"))
     assert out.shape == I.shape
     from tpuimg.oracle import guided_filter_ref
 
     # values, not just shape: the 2r > h regime must match the oracle
     ref = guided_filter_ref(I, I, 12, 1e-3, border="reflect101")
     assert np.abs(out - ref).max() < 1e-3
-
-
-def test_integral_pallas_rejects_wide_int():
-    # the auto route must never send non-u8 ints to the Pallas scan (its
-    # f32 row matmuls are silently inexact there); the contract is pinned
-    # on the explicit pallas path since auto resolves to xla on CPU anyway
-    from tpuimg.core.validate import DTypeError
-
-    img = np.arange(64 * 128, dtype=np.int32).reshape(64, 128)
-    with pytest.raises(DTypeError):
-        tpuimg.integral(img, impl="pallas")
 
 
 def test_morphology_rejects_radius_zero():
@@ -141,13 +121,13 @@ def test_check_radius_numpy_int_and_bool():
 
 def test_impl_typo_raises():
     from tpuimg.core.validate import ParamError
-    from tpuimg import gaussian, hist_equalize
+    from tpuimg.pipeline import enhance
 
-    img = np.zeros((16, 16), np.float32)
+    img = np.zeros((64, 64), np.uint8)
     with pytest.raises(ParamError):
-        gaussian(img, 2, 1.0, impl="palas")
+        enhance(img, impl="fsued")
     with pytest.raises(ParamError):
-        hist_equalize(np.zeros((16, 16), np.uint8), impl="cuda")
+        enhance(img, impl="fused1")  # the removed single-launch variant
 
 
 def test_guided_eps_must_be_positive():

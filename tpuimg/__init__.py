@@ -1,6 +1,6 @@
-"""tpuimg — TPU-native classical image processing (JAX/XLA/Pallas).
+"""tpuimg — classical image processing in JAX/XLA.
 
-From-scratch TPU redesign of the capabilities of the CUDA reference
+A from-scratch JAX redesign of the capabilities of the CUDA reference
 MrAoTian/CudaImageProcessing (see SURVEY.md). Public per-op API mirrors the
 reference entry points (SURVEY.md §7).
 """

@@ -13,7 +13,7 @@ The reference uses two border conventions (SURVEY.md §1):
   clamped to the image and normalized by the true window area
   (`GuidedFilter/guided_filter_d.cu:241-270`). Handled in ops/guided.py.
 
-All index math here is pure and usable from NumPy, jnp, and inside Pallas kernels.
+All index math here is pure and usable from NumPy and jnp.
 """
 
 from __future__ import annotations

@@ -1,18 +1,7 @@
-"""Shape/layout helpers for TPU-friendly tiling.
-
-The reference's analog is pitched allocation (`cudaMallocPitch` everywhere,
-SURVEY.md §1) plus launch math `iDivUp`/`iAlignUp`/`iExp2Up`
-(`Integral/cuda_utils.h:224-254`). On TPU the constraints are the (sublane,
-lane) = (8, 128) float32 native tile and static shapes under jit, so the
-helpers here round spatial dims up to tile multiples and crop back.
-"""
+"""Launch-math helpers (reference ``iDivUp``/``iAlignUp``,
+`Integral/cuda_utils.h:224-254`)."""
 
 from __future__ import annotations
-
-import jax.numpy as jnp
-
-SUBLANE = 8
-LANE = 128
 
 
 def cdiv(a: int, b: int) -> int:
@@ -23,23 +12,3 @@ def cdiv(a: int, b: int) -> int:
 def round_up(x: int, m: int) -> int:
     """Round x up to a multiple of m (reference ``iAlignUp``)."""
     return cdiv(x, m) * m
-
-
-def pad_to_multiple(img, mh: int, mw: int, mode: str = "edge"):
-    """Pad trailing two dims of ``img`` up to multiples of (mh, mw).
-
-    Returns (padded, (H, W)) where (H, W) is the original spatial shape.
-    Edge padding is the safe default for min/max/sum windows — padded lanes are
-    cropped before any result is returned.
-    """
-    h, w = img.shape[-2], img.shape[-1]
-    ph, pw = round_up(h, mh) - h, round_up(w, mw) - w
-    if ph == 0 and pw == 0:
-        return img, (h, w)
-    pad = [(0, 0)] * (img.ndim - 2) + [(0, ph), (0, pw)]
-    return jnp.pad(img, pad, mode=mode), (h, w)
-
-
-def crop_to(img, hw):
-    h, w = hw
-    return img[..., :h, :w]

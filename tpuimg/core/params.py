@@ -17,7 +17,6 @@ from tpuimg.core.validate import ParamError, check_positive, check_radius
 class GaussianConfig:
     radius: int = 1
     sigma: float = 1.0  # <=0 selects OpenCV's derived sigma / small-kernel table
-    impl: str = "xla"
 
     def __post_init__(self):
         check_radius(self.radius)
@@ -40,7 +39,6 @@ class GuidedConfig:
     radius: int = 4
     eps: float = 0.3  # demo default, GuidedFilter/main.cpp:184-190
     border: str = "shrink"  # class path; "reflect101" = fused path
-    impl: str = "xla"
 
     def __post_init__(self):
         check_radius(self.radius)
@@ -51,7 +49,6 @@ class GuidedConfig:
 class MorphConfig:
     radius: int = 5
     mode: int = 0  # 0 = erode/min, 1 = dilate/max (fn table image_process.cu:11-26)
-    impl: str = "xla"
 
     def __post_init__(self):
         check_radius(self.radius)

@@ -2,7 +2,7 @@
 
 The reference fails hard at runtime via CHECK/exit(-1) on CUDA errors
 (Histogram/cuda_utils.h:7-36) and silently misbehaves on bad geometry; the
-TPU build raises typed Python exceptions at trace time instead (SURVEY.md §5
+library raises typed Python exceptions at trace time instead (SURVEY.md §5
 "failure detection"). All checks run on static shape/dtype info, so they are
 free under jit.
 """
@@ -64,10 +64,8 @@ def check_positive(value, name: str):
         raise ParamError(f"{name} must be positive, got {value!r}")
 
 
-def check_impl(impl: str, allowed=("auto", "xla", "pallas"),
-               name: str = "impl"):
-    """Reject misspelled impl selectors: every dispatch is
-    'if impl == "pallas": ... else xla', so a typo would silently run the
-    wrong implementation."""
+def check_impl(impl: str, allowed, name: str = "impl"):
+    """Reject misspelled implementation selectors: a dispatch of the form
+    'if impl == "a": ... else: ...' would silently run the wrong branch."""
     if impl not in allowed:
         raise ParamError(f"{name} must be one of {allowed}, got {impl!r}")

@@ -1,8 +1,8 @@
-"""TPU-native color conversions (RGB/BGR ↔ CIE L*a*b*, RGB ↔ gray).
+"""On-device color conversions (RGB/BGR ↔ CIE L*a*b*, RGB ↔ gray).
 
 The reference keeps color handling on the host in OpenCV — BGR→Lab split,
 process L on the GPU, merge back (Histogram/main.cpp:99-117,159-168;
-Morphology/main.cpp:196-221) — because its kernels are single-channel. On TPU
+Morphology/main.cpp:196-221) — because its kernels are single-channel. Here
 the conversion is just fused elementwise math, so the whole color pipeline
 stays on device. Formulas match OpenCV's 8-bit Lab (D65, sRGB linearization,
 L*255/100 and a,b+128 quantization; verified ≤1 step vs cv2.cvtColor).
@@ -43,7 +43,9 @@ def rgb_to_lab(rgb):
     """uint8 (..., 3) RGB → uint8 (..., 3) Lab with OpenCV's 8-bit scaling."""
     x = _srgb_to_linear(rgb.astype(jnp.float32) * jnp.float32(1 / 255.0))
     M = jnp.asarray(_RGB2XYZ, jnp.float32)
-    xyz = jnp.einsum("...c,dc->...d", x, M) / jnp.asarray(_WHITE, jnp.float32)
+    # precision="highest": a default-precision f32 product may run in TF32
+    xyz = jnp.einsum("...c,dc->...d", x, M, precision="highest") \
+        / jnp.asarray(_WHITE, jnp.float32)
     f = jnp.where(xyz > _EPS, jnp.cbrt(xyz), 7.787 * xyz + jnp.float32(16.0 / 116.0))
     y = xyz[..., 1]
     L = jnp.where(y > _EPS, 116.0 * f[..., 1] - 16.0, _KAPPA * y)
@@ -72,7 +74,8 @@ def lab_to_rgb(lab):
     Z = finv(fz, (116.0 * fz - 16.0) / _KAPPA)
     xyz = jnp.stack([X, Y, Z], axis=-1) * jnp.asarray(_WHITE, jnp.float32)
     M = jnp.asarray(_XYZ2RGB, jnp.float32)
-    rgb = _linear_to_srgb(jnp.einsum("...c,dc->...d", xyz, M))
+    rgb = _linear_to_srgb(jnp.einsum("...c,dc->...d", xyz, M,
+                                    precision="highest"))
     return jnp.clip(jnp.rint(rgb * 255.0), 0, 255).astype(jnp.uint8)
 
 
@@ -88,5 +91,6 @@ def lab_to_bgr(lab):
 def rgb_to_gray(rgb):
     """uint8 (..., 3) RGB → uint8 (...) gray, OpenCV weights + rounding."""
     w = jnp.asarray([0.299, 0.587, 0.114], jnp.float32)
-    g = jnp.einsum("...c,c->...", rgb.astype(jnp.float32), w)
+    g = jnp.einsum("...c,c->...", rgb.astype(jnp.float32), w,
+                   precision="highest")
     return jnp.clip(jnp.rint(g), 0, 255).astype(jnp.uint8)

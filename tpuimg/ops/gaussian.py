@@ -5,16 +5,12 @@ Reference: GaussianFilter/gaussian.cu — a ladder of 5 CUDA kernels
 convolution with reflect-101 border and weights from
 ``cv::getGaussianKernel`` (gaussian.cu:443-446).
 
-TPU design: the separable symmetric form ``k[i]*(x[-i] + x[+i])``
-(the `gGaussSplit` trick, gaussian.cu:129-178) expressed as shift-and-add over
-a reflect-padded image. XLA fuses the whole pyramid into one HBM-bandwidth
-pass per axis; a fused Pallas strip kernel (kernels/sep_stencil.py) is the
-`gGaussOptim` analog.
+Design: the separable symmetric form ``k[i]*(x[-i] + x[+i])`` (the
+`gGaussSplit` trick, gaussian.cu:129-178) expressed as shift-and-add over a
+reflect-padded image; XLA fuses each axis pass into one elementwise kernel.
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -22,11 +18,6 @@ import numpy as np
 
 from tpuimg.core.borders import REFLECT101, pad_mode
 from tpuimg.core.kernelgen import gaussian_kernel_1d
-from tpuimg.core.jit import op_jit
-
-
-# frame size (bytes, f32) above which the XLA path processes column strips
-_STRIP_BYTES = 96 * 1024 * 1024
 
 
 def _sep_pass(img, weights, axis: int):
@@ -45,70 +36,41 @@ def _sep_pass(img, weights, axis: int):
     return acc
 
 
-def gaussian_ypadded(p, radius: int, sigma: float, impl: str = "auto"):
+def _weights(radius: int, sigma: float):
+    return [float(v) for v in
+            np.asarray(gaussian_kernel_1d(2 * radius + 1, sigma))]
+
+
+def gaussian_ypadded(p, radius: int, sigma: float):
     """Gaussian blur of a block already padded by ``radius`` rows on the row
     axis (halo rows from a neighbor shard or border policy); x is handled
-    locally. Used by parallel.stencil_sharded.
-
-    impl="auto"/"pallas": each shard runs the fused band kernel (round 3 —
-    compiled on TPU, interpret-mode on the CPU dryrun mesh); impl="xla"
-    keeps the shift-add chain."""
-    if impl in ("auto", "pallas"):
-        from tpuimg.kernels.sep_stencil import gaussian_pallas_ypadded
-
-        return gaussian_pallas_ypadded(p, radius, sigma)
-    w = [float(v) for v in np.asarray(gaussian_kernel_1d(2 * radius + 1, sigma))]
+    locally. Used by parallel.stencil_sharded."""
+    w = _weights(radius, sigma)
     pad = [(0, 0)] * (p.ndim - 1) + [(radius, radius)]
     p = jnp.pad(p, pad, mode=pad_mode(REFLECT101))
     rows = _sep_pass(p, w, axis=p.ndim - 1)
     return _sep_pass(rows, w, axis=p.ndim - 2)
 
 
-@op_jit(static_argnames=("radius", "sigma", "impl"))
-def gaussian(img, radius: int, sigma: float, impl: str = "auto"):
+@jax.jit(static_argnames=("radius", "sigma"))
+def gaussian(img, radius: int, sigma: float):
     """Gaussian blur of a float image (..., H, W), reflect-101 border;
     float32 result. uint8 input is accepted and promoted (blur of the raw
     0..255 values) — the reference instead pre-scales u8 images by 1/255 on
     the host (gaussian.cu:436), which callers can do with ``img / 255``.
 
     Matches reference output of every kernel in the gaussian.cu ladder.
-
-    impl="auto" picks the measured winner: the fused Pallas band engine on
-    TPU (in-kernel borders, round 3 — beats the XLA pyramid at every
-    measured config: r1 4K 0.127 vs 0.136 ms, r2 0.168 vs 0.196, r7 0.439
-    vs 0.445, r2 1080p 0.045 vs 0.055), XLA on CPU. The engine requires
-    H, W > radius (reflect-101); tiny frames fall back to XLA.
     """
-    from tpuimg.core.validate import check_image, check_impl, check_radius
+    from tpuimg.core.validate import check_image, check_radius
 
     check_radius(radius)
-    check_impl(impl)
-    # same accepted set as guided_filter (ops/guided.py:205): floats, plus
-    # u8 promoted; anything else (bool masks, i32 integral images passed by
-    # mistake, complex) is rejected rather than silently blurred
-    h, w = check_image(img, "img",
-                       dtypes=[jnp.float32, jnp.float64, jnp.uint8])
-    if impl == "auto":
-        impl = ("pallas" if jax.default_backend() != "cpu"
-                and min(h, w) > radius else "xla")
-    if impl == "pallas":
-        from tpuimg.kernels.sep_stencil import gaussian_pallas
-
-        return gaussian_pallas(img, radius, sigma)
+    # same accepted set as guided_filter: floats, plus u8 promoted; anything
+    # else (bool masks, i32 integral images passed by mistake, complex) is
+    # rejected rather than silently blurred
+    check_image(img, "img", dtypes=[jnp.float32, jnp.float64, jnp.uint8])
     img = jnp.asarray(img, jnp.float32)
-    w = [float(v) for v in np.asarray(gaussian_kernel_1d(2 * radius + 1, sigma))]
+    w = _weights(radius, sigma)
     pad = [(0, 0)] * (img.ndim - 2) + [(radius, radius), (radius, radius)]
     p = jnp.pad(img, pad, mode=pad_mode(REFLECT101))
-    # frames larger than on-chip memory lose XLA's VMEM residency and the
-    # fused pyramid degrades ~4x per pixel (8K f32: 3.2 ms); processing
-    # column strips restores VMEM-scale working sets (2.2 ms, bit-exact)
-    if img.shape[-2] * img.shape[-1] * 4 > _STRIP_BYTES:
-        strip = 1024
-        outs = []
-        for x0 in range(0, img.shape[-1], strip):
-            seg = p[..., :, x0 : x0 + strip + 2 * radius]
-            rows = _sep_pass(seg, w, axis=img.ndim - 1)
-            outs.append(_sep_pass(rows, w, axis=img.ndim - 2))
-        return jnp.concatenate(outs, axis=-1)
     rows = _sep_pass(p, w, axis=img.ndim - 1)  # horizontal, rows still padded
     return _sep_pass(rows, w, axis=img.ndim - 2)

@@ -10,9 +10,9 @@ Reference: GuidedFilter/ — two implementations:
   border and fixed 1/ksz² normalization (:421-669), gWeightByABm box-sums A,B
   and forms q = (ΣA·I + ΣB)/ksz² (:672-858).
 
-TPU design: windowed sums along an axis are cumsum differences (one pass per
-axis, XLA-fused); the elementwise a/b/q chain fuses for free. The Pallas fused
-kernel (kernels/boxsum.py) mirrors gCalcAB's one-pass 4-sum structure.
+Design: windowed sums along an axis are direct shifted adds (small radii)
+or cumsum differences (larger radii), one pass per axis; XLA fuses the
+elementwise a/b/q chain around them.
 """
 
 from __future__ import annotations
@@ -23,18 +23,12 @@ import jax
 import jax.numpy as jnp
 
 from tpuimg.core.borders import REFLECT101, SHRINK, pad_mode
-from tpuimg.core.jit import op_jit
 
 
-# below this radius, direct shifted adds (which XLA fuses into one pass)
-# beat the cumsum-difference form (measured crossover ~r5 on v5e)
-_DIRECT_MAX_RADIUS = 5
-
-# fused Pallas path upper radius: with log-depth window sums
-# (kernels/window.py) the fused kernel wins through the flagship r=8 config
-# and beyond (v5e measurement in the guided_filter docstring); the reference's
-# own fused ladder stops at r=7 (guided_filter_d.cu:1047-1093)
-_PALLAS_MAX_RADIUS = 16
+# up to this radius, direct shifted adds (which XLA fuses into one pass)
+# beat the cumsum-difference form at every radius swept on the H100; r=10
+# and r=12 lose to it (PERF.md)
+_DIRECT_MAX_RADIUS = 9
 
 
 def _window_sum(x, radius: int, axis: int, border: str | None):
@@ -108,25 +102,16 @@ def _axis_counts(n: int, radius: int):
     return hi - lo
 
 
-def guided_ypadded(Ipad, ppad, radius: int, eps: float, impl: str = "auto"):
+def guided_ypadded(Ipad, ppad, radius: int, eps: float):
     """Fused-path guided filter on blocks already padded by ``2*radius`` rows
     on the row axis (halo rows from neighbor shards or the border policy);
     x is padded locally with reflect-101. Returns the unpadded rows.
 
-    Used by parallel.guided_filter_sharded — the multi-chip form of the
+    Used by parallel.guided_filter_sharded — the multi-device form of the
     reference's fused chain (gCalcAB + gWeightByABm,
     GuidedFilter/guided_filter_d.cu:421-858): pass 1 consumes ``radius`` halo
     rows, pass 2 consumes ``radius`` more.
-
-    impl="auto"/"pallas": each shard runs the fused one-pass Pallas kernel
-    (round 3 — compiled on TPU, interpret-mode on the CPU dryrun mesh);
-    impl="xla" keeps the cumsum-free shift-add chain.
     """
-    if impl in ("auto", "pallas"):
-        from tpuimg.kernels.boxsum import guided_pallas_ypadded
-
-        return guided_pallas_ypadded(Ipad, ppad, radius, eps,
-                                     self_guided=ppad is Ipad)
     r = radius
     ksz = 2 * r + 1
     coef = jnp.float32(1.0 / (ksz * ksz))
@@ -162,7 +147,7 @@ def box_filter_ypadded(p, radius: int):
     return s * jnp.float32(1.0 / (ksz * ksz))
 
 
-@op_jit(static_argnames=("radius", "border"))
+@jax.jit(static_argnames=("radius", "border"))
 def box_filter(x, radius: int, border: str = SHRINK):
     """Box mean over a (2r+1)² window of a float32 (..., H, W) image.
 
@@ -182,63 +167,39 @@ def box_filter(x, radius: int, border: str = SHRINK):
     return s * jnp.float32(1.0 / (ksz * ksz))
 
 
-def guided_filter(I, p, radius: int, eps: float, border: str = SHRINK,
-                  impl: str = "auto"):
+def guided_filter(I, p, radius: int, eps: float, border: str = SHRINK):
     """Guided filter q = mean(a)·I + mean(b) with a/b from per-channel
     variance (gCalcA math, guided_filter_d.cu:306-346).
 
-    impl="auto" mirrors the reference's radius ladder (hGuidedFilter,
-    guided_filter_d.cu:1047-1093): the fused Pallas path with reflect-101
-    border on TPU (measured 3-4x faster than the XLA chain at every covered
-    radius, r1-16, compare_impls.log — the reference's own fused ladder
-    stops at r7), the XLA chain otherwise. (Stacking the four mean inputs into one
-    (4, H, W) box call was benchmarked 5x SLOWER on v5e — batched cumsums
-    layout poorly; keep the four independent box filters.)
+    border="shrink": the reference's class path (shrink-window means);
+    border="reflect101": its fused small-radius path (hGuidedFilter,
+    guided_filter_d.cu:1047-1093: reflect-101 halo, fixed 1/ksz²).
 
     Passing the same array as both I and p (self-guided edge-preserving
     smoothing) collapses the four windowed means to two (P ≡ I ⇒
-    mean_p ≡ mean_I, mean_Ip ≡ mean_II) — bitwise-identical output, ~25%
-    faster. Detected by object identity here, outside the jit boundary
-    (inside a trace the duplicated argument becomes two distinct tracers).
+    mean_p ≡ mean_I, mean_Ip ≡ mean_II) — bitwise-identical output with
+    fewer passes. Detected by object identity here, outside the jit
+    boundary (inside a trace the duplicated argument becomes two distinct
+    tracers).
     """
     return _guided_filter_impl(I, p, radius=radius, eps=eps, border=border,
-                               impl=impl, self_guided=p is I)
+                               self_guided=p is I)
 
 
-@op_jit(static_argnames=("radius", "eps", "border", "impl", "self_guided"))
+@jax.jit(static_argnames=("radius", "eps", "border", "self_guided"))
 def _guided_filter_impl(I, p, radius: int, eps: float, border: str,
-                        impl: str, self_guided: bool):
+                        self_guided: bool):
     from tpuimg.core.validate import (
-        ShapeError, check_image, check_impl, check_positive, check_radius)
+        ShapeError, check_image, check_positive, check_radius)
 
     check_radius(radius)
     check_positive(eps, "eps")  # eps=0 gives 0/0=NaN on constant windows
-    check_impl(impl)
     check_image(I, "I", dtypes=[jnp.float32, jnp.float64, jnp.uint8])
     check_image(p, "p", dtypes=[jnp.float32, jnp.float64, jnp.uint8])
     if p.ndim not in (I.ndim, I.ndim + 1) or p.shape[-2:] != I.shape[-2:]:
         raise ShapeError(
             f"guide I {tuple(I.shape)} and source p {tuple(p.shape)} must "
             f"share spatial dims (p may add one leading channel dim)"
-        )
-    if impl == "auto":
-        # the fused kernel's reflect-101 row/col pads reach 2r, so it needs
-        # min(h, w) > 2r; smaller inputs stay on the XLA chain
-        impl = (
-            "pallas"
-            if (jax.default_backend() != "cpu" and border == REFLECT101
-                and radius <= _PALLAS_MAX_RADIUS
-                and min(I.shape[-2], I.shape[-1]) > 2 * radius)
-            else "xla"
-        )
-    if impl == "pallas" and border != REFLECT101:
-        from tpuimg.core.validate import ParamError
-
-        raise ParamError(
-            f"impl='pallas' implements the fused-path semantics "
-            f"(border='reflect101', fixed 1/ksz^2 normalization, "
-            f"guided_filter_d.cu:1047-1093); got border={border!r} — "
-            f"use impl='xla' for the {border!r} class-path semantics"
         )
     I = jnp.asarray(I, jnp.float32)
     p = I if self_guided else jnp.asarray(p, jnp.float32)
@@ -247,13 +208,8 @@ def _guided_filter_impl(I, p, radius: int, eps: float, border: str,
         # CN1 kernels (gCalcACN1/gCalcBCN1/gLinearTransformCN1,
         # guided_filter_d.cu:326-412): per-channel scalar filter, guide fixed
         return jax.vmap(
-            lambda pc: guided_filter(I, pc, radius, eps, border, impl)
+            lambda pc: guided_filter(I, pc, radius, eps, border)
         )(p)
-    if impl == "pallas":
-        from tpuimg.kernels.boxsum import guided_filter_pallas
-
-        return guided_filter_pallas(I, p, radius, eps,
-                                    self_guided=self_guided)
     box = functools.partial(box_filter, radius=radius, border=border)
     mean_I = box(I)
     mean_II = box(I * I)

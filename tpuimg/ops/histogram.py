@@ -5,165 +5,86 @@ gCalcHeTable (:72-124, Blelloch CDF + rint LUT), gMapping (:127-136), and the
 CLAHE chain gCalcTileHistsUnroll → gClipLimit → gCreateTable →
 gInterpolateMappingUnroll (:208-510) driven by Claher::run (clahe.cpp:26-104).
 
-TPU design divergences (SURVEY.md §2.2 "no atomics on TPU", §7 hard parts):
-- histograms are VMEM-resident Pallas one-hot contractions (kernels/hist.py;
-  no HBM one-hot spill — the XLA einsum form in kernels/onehot.py is the CPU
-  fallback) and LUT applications are lane dynamic-gathers (kernels/lut.py) —
-  measured ~100x faster than XLA's gather lowering;
+Design:
+- 256-bin histograms are nibble one-hot contractions, v = 16*hi + lo:
+  hist[16a+b] = Σ_p (hi_p==a)(lo_p==b), an int8 (16,P)@(P,16) product with
+  int32 accumulation (exact for any size). XLA's scatter-add lowering
+  funnels every pixel through atomics on the same 256 counters and measured
+  slower on the H100; CLAHE's per-tile histograms spread over
+  ytiles*xtiles*256 counters, where the scatter-add wins (PERF.md);
+- LUT application and the CLAHE 4-corner lookup are plain per-pixel gathers
+  from the (small, cache-resident) tables;
 - clip/redistribute's serial residual loop (`hist[(i<<8)/residual] += 1`,
-  image_process.cu:266) becomes a closed-form per-bin count;
-- the bilinear 4-LUT interpolation is decomposed into the ≤ xtiles·ytiles
-  static rectangular regions on which the 4 corner LUTs are constant (the
-  trunc'd tile coordinates ty1/tx1 depend only on y resp. x), so each region
-  is 4 shared-one-hot table evaluations — no per-pixel gather at all.
+  image_process.cu:266) becomes a closed-form per-bin count.
 All rounding matches the CUDA ops: `__float2int_rn` → jnp.rint (half-to-even),
 `__float2int_rz` → trunc, float→u8 assignment → truncation.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from tpuimg.core.layout import cdiv
-from tpuimg.kernels.onehot import hist256, hist256_tiled, lut_apply, lut_apply4
-from tpuimg.core.jit import op_jit
 
 
-def _on_tpu() -> bool:
-    return jax.default_backend() != "cpu"
-
-
-def _hist_global(img):
-    """256-bin histogram: VMEM-resident Pallas kernel on TPU (no HBM one-hot
-    spill, kernels/hist.py), XLA one-hot einsum elsewhere."""
-    if _on_tpu():
-        from tpuimg.kernels.hist import hist256_pallas
-
-        return hist256_pallas(img)
-    return hist256(img)
-
-
-def _hist_groups(flat2d):
-    """(G, P) u8 -> (G, 256) per-group histograms; same dispatch."""
-    if _on_tpu():
-        from tpuimg.kernels.hist import hist256_groups_pallas
-
-        return hist256_groups_pallas(flat2d)
-    return hist256_tiled(flat2d)
-
-
-def _hist_tiles(ext, ytiles: int, xtiles: int, th: int, tw: int):
-    """Per-tile histograms of the (ytiles*th, xtiles*tw) extension:
-    regroup transpose + the grouped hist kernel.
-
-    A transpose-free variant (pad tiles to aligned blocks with free
-    reshapes + fused zero pads, 2D tile grid reading each tile block
-    directly) measured SLOWER on v5e — 0.67 vs 0.63 ms total CLAHE at 4K
-    8x8: the 64-step small-block grid and per-tile (th_p, tw_p) flatten
-    relayouts cost more than the one regroup copy they replace. Keep the
-    transpose for oversized tiles.
-
-    Round 4: the usual path is ``hist_tiles_fused`` (kernels/hist.py) — no
-    transpose at all; each ytile row band is read once and the xtiles are
-    carved with static lane slices inside the hist kernel. An i32-packed
-    transpose variant (bitcast 4 cols/lane) was probed and is a wash —
-    the XLA i32 transpose is no faster (scripts/probes/clahe_r4_probe)."""
-    if _on_tpu():
-        from tpuimg.kernels import hist as _h
-
-        thp = cdiv(th, 32) * 32
-        twp = cdiv(tw, 128) * 128
-        if (thp * xtiles * tw <= _h._FUSED_BAND_BYTES
-                and thp * twp <= _h._MAX_GROUP):
-            return _h.hist_tiles_fused(ext, ytiles, xtiles, th, tw)
-    tiles = ext.reshape(ytiles, th, xtiles, tw).transpose(0, 2, 1, 3)
-    return _hist_groups(tiles.reshape(ytiles * xtiles, th * tw))
+def _onehot_nibbles(x):
+    """Split u8 values into (hi, lo) int8 nibble one-hots of shape (..., 16)."""
+    xi = x.astype(jnp.int32)
+    i16 = jnp.arange(16, dtype=jnp.int32)
+    return (((xi >> 4)[..., None] == i16).astype(jnp.int8),
+            ((xi & 15)[..., None] == i16).astype(jnp.int8))
 
 
 def bincount256(x, per_leading: bool = False):
-    """256-bin histogram(s) of a uint8 array.
+    """256-bin int32 histogram(s) of a uint8 array.
 
     per_leading=False reduces everything; True keeps the leading dim and
     reduces the rest (one histogram per leading index).
     """
-    if per_leading:
-        return hist256_tiled(x.reshape(x.shape[0], -1))
-    return hist256(x)
+    flat = x.reshape(x.shape[0], -1) if per_leading else x.reshape(1, -1)
+    oh_hi, oh_lo = _onehot_nibbles(flat)  # (G, P, 16) each
+    h = jnp.einsum("gpa,gpb->gab", oh_hi, oh_lo,
+                   preferred_element_type=jnp.int32).reshape(-1, 256)
+    return h if per_leading else h[0]
 
 
 def apply_lut(table, img):
-    """dst = table[img] (gMapping, image_process.cu:127-136)."""
-    return lut_apply(table, img)
+    """dst = table[img] (gMapping, image_process.cu:127-136); exact for any
+    table dtype."""
+    return jnp.asarray(table)[jnp.asarray(img).astype(jnp.int32)]
 
 
-@op_jit(static_argnames=("impl",))
-def hist_equalize(img, impl: str = "auto"):
+def _he_tables(hists, pixels: int):
+    """table[v] = rint(min(255, cdf[v]*256/N)) per histogram (last axis)."""
+    cdfs = jnp.cumsum(hists, axis=-1).astype(jnp.float32)
+    factor = jnp.float32(256.0 / pixels)
+    return jnp.rint(jnp.minimum(jnp.float32(255.0), cdfs * factor)
+                    ).astype(jnp.uint8)
+
+
+@jax.jit
+def hist_equalize(img):
     """Global HE of a uint8 image: table[v] = rint(min(255, cdf[v]*256/N))
     (gCalcHeTable, image_process.cu:115-123; factor hist_equalization.cpp:58).
+    Leading batch dims get one histogram/LUT per (H, W) frame.
 
     Note: the reference kernel undercounts the last x-block of each row band
     (in-loop ``return`` before the smem flush, image_process.cu:54-58); we
-    implement the intended algorithm (matches cv::equalizeHist within 2 gray
-    levels; see .claude/skills/verify/SKILL.md).
+    implement the intended algorithm (KNOWN_DIVERGENCES.md §1).
     """
-    from tpuimg.core.validate import check_image, check_impl
+    from tpuimg.core.validate import check_image
 
     img = jnp.asarray(img)
     # uint8 only: a silent jnp.asarray(img, uint8) would turn a [0,1] float
-    # image into near-zeros (round-1 advisor finding)
+    # image into near-zeros
     check_image(img, "img", dtypes=[jnp.uint8])
-    check_impl(impl)
-    if impl == "auto":
-        impl = "pallas" if _on_tpu() else "xla"
-    if img.ndim > 2:
-        # per-frame semantics over leading batch dims (one histogram/LUT per
-        # image, like the reference's per-call behavior and
-        # parallel.hist_equalize_sharded)
-        lead = img.shape[:-2]
-        per_image = img.shape[-2] * img.shape[-1]
-        flat = img.reshape((-1,) + img.shape[-2:])
-        if impl == "pallas":
-            # frame-shaped grouping: 32-row bands per frame (single-frame
-            # regime + cheap row-append pad) — 0.86 vs 1.06 ms at 1080p b16
-            # over the flat (B, H*W) form (kernels/hist.py, probe r5b)
-            from tpuimg.kernels.hist import hist256_frames_pallas
-
-            hists = hist256_frames_pallas(flat)
-        else:
-            hists = hist256_tiled(flat.reshape(flat.shape[0], -1))
-        cdfs = jnp.cumsum(hists, axis=-1).astype(jnp.float32)
-        factor = jnp.float32(256.0 / per_image)
-        tables = jnp.rint(
-            jnp.minimum(jnp.float32(255.0), cdfs * factor)
-        ).astype(jnp.uint8)
-        if impl == "pallas":
-            # batched per-frame Pallas gather at any batch size (round 4:
-            # the former >8-frame fallback was the HBM-spilling one-hot
-            # einsum the module docstring warns about)
-            from tpuimg.kernels.lut import lut_gather_frames
-
-            out = lut_gather_frames(tables, flat)
-        else:
-            out = jax.vmap(lut_apply)(tables, flat)
-        return out.reshape(lead + img.shape[-2:])
-    if impl == "pallas":
-        from tpuimg.kernels.hist import hist256_pallas
-
-        hist = hist256_pallas(img)  # VMEM-resident (interpret-mode on CPU)
-    else:
-        hist = hist256(img)
-    cdf = jnp.cumsum(hist).astype(jnp.float32)
-    factor = jnp.float32(256.0 / img.size)
-    table = jnp.rint(jnp.minimum(jnp.float32(255.0), cdf * factor)).astype(jnp.uint8)
-    if impl == "pallas":
-        from tpuimg.kernels.lut import lut_gather
-
-        return lut_gather(table, img)
-    return lut_apply(table, img)
+    frames = img.reshape((-1,) + img.shape[-2:])
+    tables = _he_tables(bincount256(frames, per_leading=True),
+                        img.shape[-2] * img.shape[-1])
+    out = jax.vmap(apply_lut)(tables, frames)
+    return out.reshape(img.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -194,8 +115,8 @@ def _clip_redistribute(hists, limit: int):
 def _bilinear_blend(t11, t12, t21, t22, xa, ya):
     """The 4-LUT bilinear lerp (gInterpolateMappingUnroll,
     image_process.cu:462-469). Single source of truth for the blend formula —
-    consumed by the local XLA mapping below AND parallel.clahe_sharded, so a
-    rounding change can never skew one against the other."""
+    consumed by ``clahe`` AND parallel.clahe_sharded, so a rounding change
+    can never skew one against the other."""
     xa1 = jnp.float32(1.0) - xa
     ya1 = jnp.float32(1.0) - ya
     return (t11 * xa1 + t12 * xa) * ya1 + (t21 * xa1 + t22 * xa) * ya
@@ -207,26 +128,45 @@ def _blend_to_u8(out):
     return jnp.clip(jnp.trunc(out), 0.0, 255.0).astype(jnp.uint8)
 
 
-def _tile_coord_runs(n: int, tiles: int, tsize: int, pad: int, use_recip: bool):
-    """Static per-axis region decomposition of the interpolation coordinates.
-
-    Replicates the device f32 math exactly (y: __fdiv_rn, x: __frcp_rn +
-    __fmul_rn, trunc via __float2int_rz — image_process.cu:437,456) in NumPy
-    f32 at trace time, then returns runs of constant truncated tile index:
-    [(start, stop, t1, t2), ...].
-    """
+def _tile_coords(n: int, tiles: int, tsize: int, pad: int, use_recip: bool):
+    """Per-pixel interpolation coordinates along one axis, computed at trace
+    time in NumPy f32 exactly as the device does (y: __fdiv_rn, x:
+    __frcp_rn + __fmul_rn, trunc via __float2int_rz —
+    image_process.cu:437,456). Returns (t1, t2, frac) arrays of length n."""
     idx = np.arange(n, dtype=np.float32)
     if use_recip:
-        tf = (idx + np.float32(pad)) * (np.float32(1.0) / np.float32(tsize)) - np.float32(0.5)
+        tf = (idx + np.float32(pad)) * (np.float32(1.0) / np.float32(tsize)) \
+            - np.float32(0.5)
     else:
         tf = (idx + np.float32(pad)) / np.float32(tsize) - np.float32(0.5)
     t1 = np.trunc(tf).astype(np.int32)
     t2 = np.minimum(t1 + 1, tiles - 1)
-    bounds = [0] + list(np.flatnonzero(np.diff(t1)) + 1) + [n]
-    return [
-        (int(s), int(e), int(t1[s]), int(t2[s]), tf[s:e] - t1[s:e])
-        for s, e in zip(bounds[:-1], bounds[1:])
-    ]
+    return t1, t2, (tf - t1).astype(np.float32)
+
+
+def _map_tables(flat_tables, v, ty1, ty2, tx1, tx2, xtiles: int, xa, ya):
+    """Bilinear 4-corner mapping as four per-pixel gathers from the flat
+    (T*256,) f32 table bank. ty*/tx* are int32 tile indices broadcastable
+    against ``v`` (rows (R, 1), columns (1, W))."""
+    v = v.astype(jnp.int32)
+
+    def corner(ty, tx):
+        return flat_tables[(ty * xtiles + tx) * 256 + v]
+
+    return _bilinear_blend(corner(ty1, tx1), corner(ty1, tx2),
+                           corner(ty2, tx1), corner(ty2, tx2), xa, ya)
+
+
+def _hist_tiles(ext, ytiles: int, xtiles: int, th: int, tw: int):
+    """Per-tile histograms of the (ytiles*th, xtiles*tw) extension: one
+    scatter-add over ytiles*xtiles*256 counters. With that many counters the
+    atomics rarely collide, and this beat the transpose + one-hot form on
+    the H100 (PERF.md)."""
+    ty = jnp.arange(ytiles * th, dtype=jnp.int32)[:, None] // th
+    tx = jnp.arange(xtiles * tw, dtype=jnp.int32)[None, :] // tw
+    idx = (ty * xtiles + tx) * 256 + ext.astype(jnp.int32)
+    return jnp.bincount(idx.reshape(-1), length=ytiles * xtiles * 256
+                        ).reshape(ytiles * xtiles, 256).astype(jnp.int32)
 
 
 def _clahe_front(img, clip_limit: float, xtiles: int, ytiles: int):
@@ -235,13 +175,11 @@ def _clahe_front(img, clip_limit: float, xtiles: int, ytiles: int):
     Everything up to (and excluding) the bilinear 4-LUT mapping of
     Claher::run (clahe.cpp:26-104): tile geometry, reflect-101 centered
     extension, per-tile histograms, clip+redistribute, and the float LUTs.
-    Shared by ``clahe`` and the fully-fused enhance pipeline (which maps
-    inside the tail kernel instead of in a separate launch).
 
     Returns (tables (ytiles*xtiles, 256) f32, th, tw, pad_top, pad_left).
     """
     from tpuimg.core.validate import (
-        ShapeError, check_image, check_impl, check_positive, check_radius)
+        ParamError, ShapeError, check_image, check_positive, check_radius)
 
     img = jnp.asarray(img)
     # uint8 only — a silent jnp.asarray(img, uint8) would turn a [0,1] float
@@ -265,13 +203,11 @@ def _clahe_front(img, clip_limit: float, xtiles: int, ytiles: int):
     pad_top = (th * ytiles - h) >> 1
 
     # --- per-tile histograms over the reflect-101 centered extension ---
-    # (flip+concat of border slices, not an index gather — TPU gathers are
-    # slow; identical to the reflect-101 index map since pads < image dims)
+    # (flip+concat of border slices; identical to the reflect-101 index map
+    # since pads < image dims)
     pad_bot = th * ytiles - h - pad_top
     pad_right = tw * xtiles - w - pad_left
     if max(pad_top, pad_bot) + 1 > h or max(pad_left, pad_right) + 1 > w:
-        from tpuimg.core.validate import ParamError
-
         raise ParamError(
             f"tile grid {xtiles}x{ytiles} needs more reflect padding than the "
             f"{h}x{w} image can provide (reference dLimitSize has the same "
@@ -295,104 +231,28 @@ def _clahe_front(img, clip_limit: float, xtiles: int, ytiles: int):
     return tables, th, tw, pad_top, pad_left
 
 
-def _map_bank(tables, ytiles: int, xtiles: int):
-    """Corner-table bank for the single-launch mapping kernels: bank[u, t] =
-    (T[u, t], T[min(u+1, ymax), t]) — (ytiles, xtiles, 2, 256) f32."""
-    idx = []
-    for u in range(ytiles):
-        ty2u = min(u + 1, ytiles - 1)
-        for t in range(xtiles):
-            idx += [u * xtiles + t, ty2u * xtiles + t]
-    return tables[jnp.asarray(idx, jnp.int32)].reshape(ytiles, xtiles, 2, 256)
-
-
-@op_jit(static_argnames=("clip_limit", "xtiles", "ytiles", "impl",
-                         "_out_f32"))
+@jax.jit(static_argnames=("clip_limit", "xtiles", "ytiles", "_out_f32"))
 def clahe(img, clip_limit: float = 1.0, xtiles: int = 8, ytiles: int = 8,
-          impl: str = "auto", _out_f32: bool = False):
+          _out_f32: bool = False):
     """CLAHE of a uint8 (H, W) image, matching Claher::run exactly
     (defaults from the demo, Histogram/main.cpp:80-82).
-
-    impl="auto": the bilinear mapping runs as the lane-dynamic-gather Pallas
-    kernel (kernels/lut.py) on TPU, or the one-hot einsum form on CPU.
 
     ``_out_f32`` (internal, for pipeline fusion): emit the raw bilinear
     blend in [0, 255] as float32, skipping the final u8 truncation — the
     enhance pipeline feeds the next stage at full precision instead of
     round-tripping through uint8 (truncating the blend reproduces the u8
     output bit-for-bit)."""
-    from tpuimg.core.validate import check_impl
-
-    check_impl(impl)
     img = jnp.asarray(img)
     tables, th, tw, pad_top, pad_left = _clahe_front(
         img, clip_limit, xtiles, ytiles)
-    h, w = img.shape[-2], img.shape[-1]
-
-    # --- bilinear 4-LUT interpolation, region-decomposed ---
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() != "cpu" else "xla"
-    yruns = _tile_coord_runs(h, ytiles, th, pad_top, use_recip=False)
-    xruns = _tile_coord_runs(w, xtiles, tw, pad_left, use_recip=True)
-
-    if impl == "pallas":
-        inv_tw = float(np.float32(1.0) / np.float32(tw))
-        xinfo = [(x0, x1, tx1) for x0, x1, tx1, _tx2, _ in xruns]
-        # a 32-row grid block spans at most n_cand consecutive ty1 bases
-        n_cand = min(ytiles, 31 // max(th, 1) + 2)
-        bank_bytes = ytiles * xtiles * 4 * 128 * 4
-        if n_cand <= 4 and bank_bytes <= (4 << 20):
-            # whole-frame mapping in ONE launch (kernels/lut.py
-            # clahe_map_full): the y-run base resolves per grid step via a
-            # dynamic sublane slice of the full table bank — kills the
-            # per-y-run dispatch + output concat of the band form
-            from tpuimg.kernels.lut import clahe_map_full
-
-            bank = _map_bank(tables, ytiles, xtiles)
-            return clahe_map_full(
-                img, bank, xinfo, pad_top=float(pad_top), th=float(th),
-                ytiles=ytiles, pad_left=float(pad_left), inv_tw=inv_tw,
-                out_f32=_out_f32,
-            )
-        if not _out_f32:
-            # tiny-tile fallback: one pallas_call per y-run
-            # (kernels/lut.py clahe_band_map)
-            from tpuimg.kernels.lut import clahe_band_map
-
-            bands = []
-            for y0, y1, ty1, ty2, _ in yruns:
-                idx = []
-                for _x0, _x1, tx1, tx2, _ in xruns:
-                    idx += [ty1 * xtiles + tx1, ty1 * xtiles + tx2,
-                            ty2 * xtiles + tx1, ty2 * xtiles + tx2]
-                bank = tables[jnp.asarray(idx, jnp.int32)].reshape(
-                    len(xruns), 4, 256)
-                bands.append(clahe_band_map(
-                    img[y0:y1], bank, xinfo, y0=float(y0),
-                    pad_top=float(pad_top), th=float(th), ty1=float(ty1),
-                    pad_left=float(pad_left), inv_tw=inv_tw,
-                ))
-            return jnp.concatenate(bands, axis=-2)
-        # _out_f32 with tiny tiles: fall through to the XLA blend (small
-        # frames; keeps the f32 semantics identical across impls)
-
-    bands = []
-    for y0, y1, ty1, ty2, ya_np in yruns:
-        ya = jnp.asarray(ya_np, jnp.float32)[:, None]
-        row_chunks = []
-        for x0, x1, tx1, tx2, xa_np in xruns:
-            xa = jnp.asarray(xa_np, jnp.float32)[None, :]
-            v = img[y0:y1, x0:x1]
-            t11, t12, t21, t22 = lut_apply4(
-                tables[ty1 * xtiles + tx1],
-                tables[ty1 * xtiles + tx2],
-                tables[ty2 * xtiles + tx1],
-                tables[ty2 * xtiles + tx2],
-                v,
-            )
-            row_chunks.append(_bilinear_blend(t11, t12, t21, t22, xa, ya))
-        bands.append(jnp.concatenate(row_chunks, axis=-1))
-    blend = jnp.concatenate(bands, axis=-2)
+    h, w = img.shape
+    ty1, ty2, ya = _tile_coords(h, ytiles, th, pad_top, use_recip=False)
+    tx1, tx2, xa = _tile_coords(w, xtiles, tw, pad_left, use_recip=True)
+    blend = _map_tables(
+        tables.reshape(-1), img,
+        jnp.asarray(ty1)[:, None], jnp.asarray(ty2)[:, None],
+        jnp.asarray(tx1)[None, :], jnp.asarray(tx2)[None, :], xtiles,
+        jnp.asarray(xa)[None, :], jnp.asarray(ya)[:, None])
     if _out_f32:
         return blend
     return _blend_to_u8(blend)

@@ -5,33 +5,21 @@ Blelloch scans of tile carries → broadcast, hIntegral :863-893). Output
 convention: NO leading zero row/col (Integral/main.cpp:124-125); must be
 bit-exact (res.log: 3000/3000 zero-diff runs).
 
-TPU design: the dependent dimension is handled exactly like the reference's
-hierarchical carry decomposition, but expressed for XLA/Pallas:
-- impl="xla": two ``jnp.cumsum`` passes (XLA lowers to log-depth scans).
-- impl="pallas": tiled one-pass-per-axis kernel with sequential-grid carry
-  (kernels/scan2d.py) — the bandwidth-optimal path.
+Design: two ``jnp.cumsum`` passes in int32, which XLA lowers to its own
+parallel scans — exact for any integer input whose sums fit int32.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from tpuimg.core.jit import op_jit
 
 
-@op_jit(static_argnames=("impl",))
-def integral(img, impl: str = "auto"):
-    """Inclusive 2D prefix sum over the trailing two dims; int32 result.
+@jax.jit
+def integral(img):
+    """Inclusive 2D prefix sum over the trailing two dims; int32 result."""
+    from tpuimg.core.validate import DTypeError, check_image
 
-    impl="auto" picks the all-MXU Pallas scan on TPU (0.142 ms at 4K on
-    v5e vs ~0.27 ms for the XLA cumsum form, kernels/scan2d.py) and XLA
-    elsewhere; non-uint8 integers always take the exact XLA path.
-    """
-    from tpuimg.core.validate import DTypeError, check_image, check_impl
-
-    check_impl(impl)
     check_image(img, "img")
     img = jnp.asarray(img)
     if jnp.issubdtype(img.dtype, jnp.floating):
@@ -40,23 +28,6 @@ def integral(img, impl: str = "auto"):
             f"(Integral/integral_d.h:6); got float dtype {img.dtype} — "
             f"use jnp.cumsum directly for float integrals"
         )
-    if impl == "auto":
-        # the Pallas scan's row pass is exact for uint8 only (bf16-exact
-        # values, f32 accumulation < 2^24); wider ints take the exact
-        # int32 XLA path so the precision contract can't silently break
-        impl = (
-            "pallas"
-            if jax.default_backend() not in ("cpu",) and img.dtype == jnp.uint8
-            else "xla"
-        )
-    if impl == "pallas":
-        if img.dtype != jnp.uint8:
-            raise DTypeError(
-                f"impl='pallas' integral requires uint8 (its row pass is "
-                f"exact for u8 only); got {img.dtype} — use impl='xla'"
-            )
-        from tpuimg.kernels.scan2d import integral_pallas
-
-        return integral_pallas(img)
-    x = jnp.asarray(img).astype(jnp.int32)
-    return jnp.cumsum(jnp.cumsum(x, axis=-1, dtype=jnp.int32), axis=-2, dtype=jnp.int32)
+    x = img.astype(jnp.int32)
+    return jnp.cumsum(jnp.cumsum(x, axis=-1, dtype=jnp.int32), axis=-2,
+                      dtype=jnp.int32)

@@ -1,9 +1,9 @@
 """On-device comparison metrics.
 
-TPU analog of the reference's device-side verification reduction
+Analog of the reference's device-side verification reduction
 (gCmpMaxAbsDiff, Integral/integral_d.cu:811-852): compare two arrays on
 device and fetch only the scalar — avoids pulling full frames back to the
-host (important on tunneled runtimes where transfers dominate).
+host.
 """
 
 from __future__ import annotations

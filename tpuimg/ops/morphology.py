@@ -7,13 +7,9 @@ image_process.cu:465-516 + morphology.cpp:25-60):
 - r > 20: 6-kernel Gil-Werman pipeline with transposes (:31-170).
 mode 0 = erode (min), 1 = dilate (max) per the device fn table (:11-26).
 
-TPU design: ONE fused Pallas engine for all radii (impl="pallas", the TPU
-default) — the sep_stencil band kernel with log-depth doubling window
-extremes (kernels/window.py), which is van Herk/Gil-Werman collapsed to
-O(log ksz) VPU ops with no transposes and one HBM pass. The XLA path
-(impl="xla") keeps two rungs for CPU/hermetic tests: direct shift-reduce for
-small radii and segmented ``lax.cummax/cummin`` van Herk above
-_VANHERK_MIN_RADIUS (SURVEY.md §7 hard-parts list).
+Design: separable per-axis extremes, two rungs — a direct (2r+1)-term
+shift-reduce that XLA fuses into one pass per axis, and segmented
+``lax.cummax/cummin`` van Herk from ``_VANHERK_MIN_RADIUS`` up.
 """
 
 from __future__ import annotations
@@ -25,12 +21,11 @@ import jax.numpy as jnp
 
 from tpuimg.core.borders import REPLICATE, pad_mode
 from tpuimg.core.layout import round_up
-from tpuimg.core.jit import op_jit
 
-# Below this radius the (2r+1)-term shift-reduce beats the scan-based van
-# Herk (4K v5e sweep, docs/sweep_morphology.json: shift-reduce r7 ≈ 0.41 ms
-# vs van Herk r8 ≈ 1.1 ms; van Herk flattens to ~0.6-0.9 ms for all radii).
-_VANHERK_MIN_RADIUS = 12
+# Up to r=40 the (2r+1)-term shift-reduce beat the O(1)-per-pixel van Herk
+# scan at every radius swept on the H100; at r=48 it fell off an XLA fusion
+# cliff (34x slower), so larger radii take the flat-cost scan (PERF.md).
+_VANHERK_MIN_RADIUS = 41
 
 
 def _shift_reduce_axis(x, radius: int, axis: int, fn):
@@ -71,35 +66,13 @@ def _van_herk_axis(x, radius: int, axis: int, fn, cumfn):
     return fn(s, p)
 
 
-# Round 2 measured an XLA window below r=5; with in-kernel borders (round 3)
-# the Pallas engine wins at EVERY radius on v5e 4K (r1: 0.065 vs 0.123 ms,
-# r2: 0.080 vs 0.190, r4: 0.096 vs 0.307, r15: 0.117, r25: 0.159 —
-# /tmp/probe_full.log 2026-08-17, archived in docs/PERFORMANCE.md), so the
-# dispatch ladder (the hMorphology analog, image_process.cu:465-516)
-# collapses to pallas-on-TPU / XLA-on-CPU.
-_PALLAS_MIN_RADIUS = 1
-
-
-def _morph(img, radius: int, mode: int, impl: str = "auto"):
-    from tpuimg.core.validate import check_image, check_impl, check_radius
-
-    check_radius(radius)
-    check_impl(impl)
-    check_image(img, "img", dtypes=[jnp.uint8, jnp.int32, jnp.float32])
-    if impl == "auto":
-        impl = (
-            "pallas"
-            if jax.default_backend() != "cpu" and radius >= _PALLAS_MIN_RADIUS
-            else "xla"
-        )
-    if impl == "pallas":
-        from tpuimg.kernels.sep_stencil import morphology_pallas
-
-        return morphology_pallas(img, radius, mode)
+def _extreme_2d(x, radius: int, mode: int, rows_padded: bool):
+    """Separable (2r+1)² extreme of ``x`` under the replicate border; the row
+    axis is already padded by ``radius`` when ``rows_padded``."""
     fn = jnp.minimum if mode == 0 else jnp.maximum
     cumfn = jax.lax.cummin if mode == 0 else jax.lax.cummax
-    x = jnp.asarray(img)
-    pad = [(0, 0)] * (x.ndim - 2) + [(radius, radius), (radius, radius)]
+    pad = [(0, 0)] * (x.ndim - 2)
+    pad += [(0, 0) if rows_padded else (radius, radius), (radius, radius)]
     x = jnp.pad(x, pad, mode=pad_mode(REPLICATE))
     axis_fn = (
         _shift_reduce_axis
@@ -110,72 +83,39 @@ def _morph(img, radius: int, mode: int, impl: str = "auto"):
     return axis_fn(x, radius, x.ndim - 2, fn)
 
 
-def morph_ypadded(p, radius: int, mode: int, impl: str = "auto"):
-    """Erode/dilate a block already padded by ``radius`` rows on the row axis
-    (halo rows); x is handled locally. Used by parallel.stencil_sharded.
-
-    impl="auto"/"pallas": each shard runs the fused band kernel (round 3 —
-    compiled on TPU, interpret-mode on the CPU dryrun mesh); impl="xla"
-    keeps the shift-reduce / van Herk chain."""
-    if impl in ("auto", "pallas"):
-        from tpuimg.kernels.sep_stencil import morph_pallas_ypadded
-
-        return morph_pallas_ypadded(p, radius, mode)
-    fn = jnp.minimum if mode == 0 else jnp.maximum
-    cumfn = jax.lax.cummin if mode == 0 else jax.lax.cummax
-    pad = [(0, 0)] * (p.ndim - 1) + [(radius, radius)]
-    p = jnp.pad(p, pad, mode=pad_mode(REPLICATE))
-    axis_fn = (
-        _shift_reduce_axis
-        if radius < _VANHERK_MIN_RADIUS
-        else functools.partial(_van_herk_axis, cumfn=cumfn)
-    )
-    p = axis_fn(p, radius, p.ndim - 1, fn)
-    return axis_fn(p, radius, p.ndim - 2, fn)
-
-
-@op_jit(static_argnames=("radius", "impl"))
-def erode(img, radius: int, impl: str = "auto"):
-    """Min over a (2r+1)² square SE, replicate border (mode 0)."""
-    return _morph(img, radius, 0, impl)
-
-
-@op_jit(static_argnames=("radius", "impl"))
-def dilate(img, radius: int, impl: str = "auto"):
-    """Max over a (2r+1)² square SE, replicate border (mode 1)."""
-    return _morph(img, radius, 1, impl)
-
-
-def _open_close(img, radius: int, mode: int, impl: str):
-    from tpuimg.core.validate import check_image, check_impl, check_radius
+def _morph(img, radius: int, mode: int):
+    from tpuimg.core.validate import check_image, check_radius
 
     check_radius(radius)
-    check_impl(impl)
     check_image(img, "img", dtypes=[jnp.uint8, jnp.int32, jnp.float32])
-    if impl == "auto":
-        impl = (
-            "pallas"
-            if jax.default_backend() != "cpu" and radius >= _PALLAS_MIN_RADIUS
-            else "xla"
-        )
-    if impl == "pallas":
-        # ONE fused kernel: the second stage consumes the first from a 2r
-        # halo recompute with border-clamped intermediates — one HBM pass
-        # where composing erode/dilate is two
-        from tpuimg.kernels.sep_stencil import open_close_pallas
-
-        return open_close_pallas(img, radius, mode)
-    first, second = (erode, dilate) if mode == 0 else (dilate, erode)
-    return second(first(img, radius, impl), radius, impl)
+    return _extreme_2d(jnp.asarray(img), radius, mode, rows_padded=False)
 
 
-@op_jit(static_argnames=("radius", "impl"))
-def morph_open(img, radius: int, impl: str = "auto"):
+def morph_ypadded(p, radius: int, mode: int):
+    """Erode/dilate a block already padded by ``radius`` rows on the row axis
+    (halo rows); x is handled locally. Used by parallel.stencil_sharded."""
+    return _extreme_2d(p, radius, mode, rows_padded=True)
+
+
+@jax.jit(static_argnames=("radius",))
+def erode(img, radius: int):
+    """Min over a (2r+1)² square SE, replicate border (mode 0)."""
+    return _morph(img, radius, 0)
+
+
+@jax.jit(static_argnames=("radius",))
+def dilate(img, radius: int):
+    """Max over a (2r+1)² square SE, replicate border (mode 1)."""
+    return _morph(img, radius, 1)
+
+
+@jax.jit(static_argnames=("radius",))
+def morph_open(img, radius: int):
     """Erode then dilate (square SE, replicate border)."""
-    return _open_close(img, radius, 0, impl)
+    return _morph(_morph(img, radius, 0), radius, 1)
 
 
-@op_jit(static_argnames=("radius", "impl"))
-def morph_close(img, radius: int, impl: str = "auto"):
+@jax.jit(static_argnames=("radius",))
+def morph_close(img, radius: int):
     """Dilate then erode (square SE, replicate border)."""
-    return _open_close(img, radius, 1, impl)
+    return _morph(_morph(img, radius, 1), radius, 0)

@@ -5,7 +5,7 @@ For hermetic tests we reimplement the *reference's own* math (not OpenCV's
 internals) in NumPy, following the cited CUDA kernels line by line in spirit:
 index maps, rounding modes (`__float2int_rn` = round-half-to-even = np.rint;
 float→u8 assignment = truncate), and normalization conventions. These oracles
-are the ground truth that both the XLA and Pallas paths must match.
+are the ground truth the library's ops must match.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
-"""Multi-chip scaling: data-parallel batching + spatially-sharded single frames.
+"""Multi-device scaling: data-parallel batching + spatially-sharded single frames.
 
 The reference is strictly single-GPU (SURVEY.md §2.2: no streams, no NCCL/MPI).
-The TPU-native scaling layer provides what the reference structurally hints at:
+This scaling layer provides what the reference structurally hints at:
 
 - **DP**: batch of frames sharded over a mesh ``data`` axis — each op here is
   already batch-polymorphic over leading dims, so DP is a sharding annotation
@@ -9,12 +9,12 @@ The TPU-native scaling layer provides what the reference structurally hints at:
 - **SP (spatial)**: one frame sharded by rows over an ``sp`` axis. Stencil ops
   (gaussian, morphology via ``stencil_sharded``; the guided filter via
   ``guided_filter_sharded`` with its 2r reach) need a radius-deep halo
-  exchange with ICI neighbors — ``shard_map`` + ``lax.ppermute``, the
-  multi-chip generalization of the reference's in-kernel smem halo staging
+  exchange with neighboring devices — ``shard_map`` + ``lax.ppermute``, the
+  multi-device generalization of the reference's in-kernel smem halo staging
   (gGaussShare, GaussianFilter/gaussian.cu:73-126). Scan ops (integral) need
   a cross-shard carry — the same hierarchical carry decomposition the
   reference uses across thread blocks (hIntegral, Integral/integral_d.cu:
-  863-893) at chip radix: local scan, exchange per-shard totals, add
+  863-893) at device radix: local scan, exchange per-shard totals, add
   exclusive prefix.
 - Histogram ops need a global reduction (``psum`` of per-shard histograms):
   ``hist_equalize_sharded`` (one 256-bin psum) and ``clahe_sharded``
@@ -75,7 +75,7 @@ def _spec(ndim: int) -> P:
 
 
 def _halo_exchange(block, radius: int, n: int, axis_name: str, border: str):
-    """Pad a row-shard with ``radius`` rows from its ICI neighbors.
+    """Pad a row-shard with ``radius`` rows from its neighbor shards.
 
     Outer shards fall back to the local border policy — equivalent to padding
     the full image and then sharding, provided each shard holds ≥ radius rows
@@ -127,10 +127,6 @@ def stencil_sharded(op, radius: int, border: str, mesh: Mesh):
             mesh=mesh,
             in_specs=(spec,),
             out_specs=spec,
-            # the fused Pallas kernels run inside the body (round 3); their
-            # pallas_call out_shapes carry no vma info, so the static
-            # varying-across-mesh check must be off
-            check_vma=False,
         )
         def inner(block):
             padded = _halo_exchange(block, radius, n_sp, "sp", border)
@@ -142,12 +138,12 @@ def stencil_sharded(op, radius: int, border: str, mesh: Mesh):
 
 
 def integral_sharded(mesh: Mesh):
-    """Row-sharded integral image with cross-chip carry.
+    """Row-sharded integral image with cross-device carry.
 
     Local 2D cumsum per shard; the carry into shard k is the column-cumsum of
-    all previous shards' last rows — gathered over ICI and prefix-summed with
-    a static lower-triangular weighting (the reference's tile-carry scan,
-    Integral/integral_d.cu:504-593, at chip radix).
+    all previous shards' last rows — all-gathered and prefix-summed with a
+    static lower-triangular weighting (the reference's tile-carry scan,
+    Integral/integral_d.cu:504-593, at device radix).
     """
 
     def run(img):
@@ -224,9 +220,7 @@ def guided_filter_sharded(mesh: Mesh, radius: int, eps: float,
         if self_guided or p is I:
 
             @functools.partial(
-                jax.shard_map, mesh=mesh, in_specs=(spec,), out_specs=spec,
-                check_vma=False,  # pallas body (see stencil_sharded)
-            )
+                jax.shard_map, mesh=mesh, in_specs=(spec,), out_specs=spec)
             def inner_self(Ib):
                 Ip = _halo_exchange(Ib, 2 * radius, n_sp, "sp", "reflect101")
                 return guided_ypadded(Ip, Ip, radius, eps)
@@ -234,9 +228,7 @@ def guided_filter_sharded(mesh: Mesh, radius: int, eps: float,
             return inner_self(I)
 
         @functools.partial(
-            jax.shard_map, mesh=mesh, in_specs=(spec, spec), out_specs=spec,
-            check_vma=False,  # pallas body (see stencil_sharded)
-        )
+            jax.shard_map, mesh=mesh, in_specs=(spec, spec), out_specs=spec)
         def inner(Ib, pb):
             Ip = _halo_exchange(Ib, 2 * radius, n_sp, "sp", "reflect101")
             pp = _halo_exchange(pb, 2 * radius, n_sp, "sp", "reflect101")
@@ -253,7 +245,7 @@ def clahe_sharded(mesh: Mesh, clip_limit: float, xtiles: int, ytiles: int):
     Tile histograms: every shard computes its rows' contributions to each of
     the ytiles*xtiles tile histograms (including the centered reflect-101
     extension rows, which shard 0 / n-1 own the sources of), then one
-    ``psum`` over ``sp`` merges them — the multi-chip generalization of the
+    ``psum`` over ``sp`` merges them — the multi-device generalization of the
     reference's per-tile smem privatization + atomic merge
     (Histogram/image_process.cu:208-239). Clip/redistribute/CDF (tiny,
     256*T values) run replicated; the bilinear 4-LUT mapping is shard-local
@@ -261,8 +253,9 @@ def clahe_sharded(mesh: Mesh, clip_limit: float, xtiles: int, ytiles: int):
     """
     from tpuimg.core.layout import cdiv
     from tpuimg.core.validate import check_positive, check_radius
-    from tpuimg.kernels.onehot import onehot_nibbles
-    from tpuimg.ops.histogram import _clip_redistribute
+    from tpuimg.ops.histogram import (
+        _blend_to_u8, _clip_redistribute, _map_tables, _onehot_nibbles,
+        _tile_coords)
 
     # same parameter contract as the local op (ops/histogram.py): tile
     # counts are ints >= 1, clip_limit > 0 — fail typed at factory build
@@ -312,7 +305,7 @@ def clahe_sharded(mesh: Mesh, clip_limit: float, xtiles: int, ytiles: int):
             to ~2*ytiles times (round-2 review)."""
             t = rows_block.reshape(rows_block.shape[0], xtiles, tw)
             t = jnp.moveaxis(t, 1, 0)  # (xtiles, R, tw)
-            oh_hi, oh_lo = onehot_nibbles(t, jnp.int8)
+            oh_hi, oh_lo = _onehot_nibbles(t)
             partial = jnp.einsum("xrwa,xrwb->xrab", oh_hi, oh_lo,
                                  preferred_element_type=jnp.int32)
             hk = jnp.einsum("kr,xrab->kxab", wrow, partial,
@@ -378,40 +371,21 @@ def clahe_sharded(mesh: Mesh, clip_limit: float, xtiles: int, ytiles: int):
             fr = jnp.float32(255.0 / (tw * th))
             tables = jnp.cumsum(hists, axis=-1).astype(jnp.float32) * fr
 
-            # --- bilinear 4-LUT mapping: dynamic ty per row (global coords),
-            # static x-run decomposition; table values selected with the
-            # shared-one-hot einsum (no per-pixel gathers — TPU gathers over
-            # a table bank measured ~100x slower, kernels/onehot.py) ---
+            # --- bilinear 4-LUT mapping: dynamic ty per row (global coords,
+            # same f32 math as the local op), static per-column tx, four
+            # per-pixel gathers from the table bank ---
             gyf = (o + jnp.arange(hs)).astype(jnp.float32)
             tyf = (gyf + jnp.float32(pad_top)) / jnp.float32(th) \
                 - jnp.float32(0.5)
             ty1 = jnp.trunc(tyf).astype(jnp.int32)
             ty2 = jnp.minimum(ty1 + 1, ytiles - 1)
             ya = (tyf - ty1.astype(jnp.float32))[:, None]
-
-            tabs3 = tables.reshape(ytiles * xtiles, 16, 16)
-            oh_hi, oh_lo = onehot_nibbles(block, jnp.float32)  # (hs, w, 16)
-
-            def corner(tyr, txc, x0, x1):
-                # per-ROW table selection (hs small gathers of 256 floats),
-                # then exact one-hot selection of table[v] per pixel
-                T = tabs3[tyr * xtiles + txc]  # (hs, 16, 16)
-                mid = jnp.einsum("rwa,rab->rwb", oh_hi[:, x0:x1], T,
-                                 precision="highest")
-                return jnp.sum(mid * oh_lo[:, x0:x1], axis=-1)  # (hs, run)
-
-            from tpuimg.ops.histogram import (_bilinear_blend, _blend_to_u8,
-                                              _tile_coord_runs)
-
-            chunks = []
-            for x0, x1, tx1, tx2, xa_np in _tile_coord_runs(
-                    w, xtiles, tw, pad_left, use_recip=True):
-                xa = jnp.asarray(xa_np, jnp.float32)[None, :]
-                chunks.append(_bilinear_blend(
-                    corner(ty1, tx1, x0, x1), corner(ty1, tx2, x0, x1),
-                    corner(ty2, tx1, x0, x1), corner(ty2, tx2, x0, x1),
-                    xa, ya))
-            return _blend_to_u8(jnp.concatenate(chunks, axis=-1))
+            tx1, tx2, xa = _tile_coords(w, xtiles, tw, pad_left,
+                                        use_recip=True)
+            return _blend_to_u8(_map_tables(
+                tables.reshape(-1), block, ty1[:, None], ty2[:, None],
+                jnp.asarray(tx1)[None, :], jnp.asarray(tx2)[None, :], xtiles,
+                jnp.asarray(xa)[None, :], ya))
 
         out = inner(img)
         return out[:h] if hpad else out
@@ -430,8 +404,7 @@ def enhance_sharded(mesh: Mesh, clip_limit: float = 2.0, tiles: int = 8,
     depth ``2*gf_radius + radius``: gaussian_ypadded consumes ``radius``
     halo rows and leaves ``2*gf_radius`` of computed smooth pad for the
     guided chain — exact at the outer shards because symmetric kernels
-    commute with the reflect-101 mirror (the same identity the fused
-    single-chip tail relies on, kernels/boxsum.py enhance_tail_pallas).
+    commute with the reflect-101 mirror.
     The reference has no multi-module chain at all — each demo is a separate
     executable with host round-trips between them (SURVEY.md §3).
 
@@ -478,7 +451,6 @@ def enhance_sharded(mesh: Mesh, clip_limit: float = 2.0, tiles: int = 8,
         @functools.partial(
             jax.shard_map, mesh=mesh, in_specs=(P("sp", None),),
             out_specs=P("sp", None),
-            check_vma=False,  # pallas body (see stencil_sharded)
         )
         def tail(fb):
             fp = _halo_exchange(fb, reach, n_sp, "sp", "reflect101")
@@ -497,7 +469,7 @@ def hist_equalize_sharded(mesh: Mesh):
     """Row-sharded global HE: psum of per-shard/per-image histograms over the
     ``sp`` axis, shared LUT, local application. Batched inputs keep one
     histogram per image (the ``data`` axis is never reduced)."""
-    from tpuimg.kernels.onehot import hist256, hist256_tiled, lut_apply
+    from tpuimg.ops.histogram import _he_tables, apply_lut, bincount256
 
     def run(img):
         from tpuimg.core.validate import check_image
@@ -516,21 +488,11 @@ def hist_equalize_sharded(mesh: Mesh):
 
         @functools.partial(jax.shard_map, mesh=mesh, in_specs=(spec,), out_specs=spec)
         def inner(block):
-            factor = jnp.float32(256.0 / per_image)
-
-            def make_table(hist):
-                cdf = jnp.cumsum(hist).astype(jnp.float32)
-                return jnp.rint(
-                    jnp.minimum(jnp.float32(255.0), cdf * factor)
-                ).astype(jnp.uint8)
-
             if block.ndim == 2:
-                hist = jax.lax.psum(hist256(block), "sp")
-                return lut_apply(make_table(hist), block)
-            b = block.reshape(block.shape[0], -1)
-            hists = jax.lax.psum(hist256_tiled(b), "sp")  # (B_local, 256)
-            tables = jax.vmap(make_table)(hists)
-            return jax.vmap(lut_apply)(tables, block)
+                hist = jax.lax.psum(bincount256(block), "sp")
+                return apply_lut(_he_tables(hist, per_image), block)
+            hists = jax.lax.psum(bincount256(block, per_leading=True), "sp")
+            return jax.vmap(apply_lut)(_he_tables(hists, per_image), block)
 
         return inner(img)
 

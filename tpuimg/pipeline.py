@@ -1,7 +1,7 @@
-"""Flagship fused pipeline: the whole-frame enhancement chain.
+"""Flagship pipeline: the whole-frame enhancement chain.
 
 The reference's demos each run one op on one frame (SURVEY.md §3); production
-use chains them. On TPU the chain compiles into one XLA program — every
+use chains them. Here the chain compiles into one XLA program — every
 intermediate stays on device (the reference needs a host round-trip and
 separate kernel launches between its modules).
 
@@ -10,21 +10,14 @@ filter (edge-preserving detail restore) → u8 frame.
 
 impl="staged" composes the public ops exactly (CLAHE output quantized to u8
 between stages, like a user chaining the reference executables). The default
-"fused" path removes the inter-stage u8 round-trip: the CLAHE mapping kernel
-emits its raw f32 blend (ops/histogram.py ``_out_f32``) which feeds the
-gaussian+guided tail directly — within 1 u8 step of "staged" by construction
-(the blend is within 1 of its truncation, and the downstream chain is an
-average-of-averages that cannot amplify a bounded perturbation).
-
-impl="fused1" additionally folds the CLAHE mapping stage into the tail
-kernel (one whole-frame launch after the histogram front end) — bit-identical
-to "fused" on chip but 0.11 ms slower at 4K (see docs/PERFORMANCE.md,
-round-5 probe), so it is opt-in rather than the default.
+"fused" path removes the inter-stage u8 round-trip: CLAHE emits its raw f32
+blend (ops/histogram.py ``_out_f32``), which feeds the gaussian + guided tail
+directly — within 1 u8 step of "staged" by construction (the blend is within
+1 of its truncation, and the downstream chain is an average-of-averages that
+cannot amplify a bounded perturbation).
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -32,11 +25,10 @@ import jax.numpy as jnp
 from tpuimg.ops.gaussian import gaussian
 from tpuimg.ops.guided import guided_filter
 from tpuimg.ops.histogram import clahe
-from tpuimg.core.jit import op_jit
 
 
-@op_jit(static_argnames=("clip_limit", "tiles", "radius", "sigma", "gf_radius",
-                         "gf_eps", "impl"))
+@jax.jit(static_argnames=("clip_limit", "tiles", "radius", "sigma",
+                          "gf_radius", "gf_eps", "impl"))
 def enhance(
     img,
     clip_limit: float = 2.0,
@@ -53,67 +45,16 @@ def enhance(
     first stage — clahe checks the same array immediately."""
     from tpuimg.core.validate import check_impl
 
-    check_impl(impl, allowed=("fused", "staged", "fused1"))
+    check_impl(impl, allowed=("fused", "staged"))
     img = jnp.asarray(img)
     if impl == "staged":
         eq = clahe(img, clip_limit, tiles, tiles)
         f = eq.astype(jnp.float32) * jnp.float32(1.0 / 255.0)
-        smooth = gaussian(f, radius, sigma)
-        # fused-path border semantics (reflect101 + 1/ksz^2) — the
-        # reference's own 4K guided demo and the one-pass kernel's native
-        # form
-        out = guided_filter(f, smooth, gf_radius, gf_eps,
-                            border="reflect101")
-        return jnp.clip(jnp.rint(out * 255.0), 0.0, 255.0).astype(jnp.uint8)
-    h, w = img.shape
-    hb2 = 2 * gf_radius + radius
-    on_tpu = jax.default_backend() != "cpu"
-    if impl == "fused1" and on_tpu and min(h, w) > 2 * hb2:
-        import numpy as np
-
-        from tpuimg.ops.histogram import (
-            _clahe_front, _map_bank, _tile_coord_runs)
-
-        tables, th, tw, pad_top, pad_left = _clahe_front(
-            img, clip_limit, tiles, tiles)
-        # "fused1": the CLAHE mapping fused INTO the tail kernel — ONE
-        # whole-frame Pallas launch after the histogram front end. The tail
-        # reads the raw u8 frame + the corner-table bank and recomputes the
-        # bilinear blend in-kernel on its halo extent (mirrored reflect-101
-        # coordinates), so neither smooth NOR the f32 blend ever touches
-        # HBM. Measured on chip, it is bit-identical to the default path
-        # but LOSES 0.11 ms at 4K (1.423 vs 1.317 ms, round-5 probe in
-        # docs/PERFORMANCE.md): the halo-extent blend recompute + per-band
-        # y-table candidate masking costs more VPU time than the ~0.08 ms
-        # f32 blend HBM round-trip it saves. Kept as an opt-in variant —
-        # it wins where launch count matters more than 0.1 ms (tracing
-        # overhead amortization, future batched forms).
-        # Gate: table-bank VMEM footprint and a sane per-band y-base
-        # candidate count (tiny tiles fall back to the 2-launch form).
-        bank_bytes = tiles * tiles * 4 * 128 * 4
-        if th >= 32 and bank_bytes <= (4 << 20):
-            from tpuimg.kernels.boxsum import enhance_tail_clahe_pallas
-
-            bank = _map_bank(tables, tiles, tiles)
-            xinfo = tuple(
-                (x0, x1, tx1) for x0, x1, tx1, _tx2, _ in
-                _tile_coord_runs(w, tiles, tw, pad_left, use_recip=True))
-            out = enhance_tail_clahe_pallas(
-                img, bank, radius, sigma, gf_radius, gf_eps,
-                pad_top=float(pad_top), th=th, tw=tw, ytiles=tiles,
-                xtiles=tiles, pad_left=float(pad_left),
-                inv_tw=float(np.float32(1.0) / np.float32(tw)), xinfo=xinfo)
-            return jnp.clip(jnp.rint(out * 255.0), 0.0, 255.0).astype(
-                jnp.uint8)
-    blend = clahe(img, clip_limit, tiles, tiles, _out_f32=True)
-    f = blend * jnp.float32(1.0 / 255.0)
-    if on_tpu and min(h, w) > 2 * hb2:
-        # single-kernel gaussian+guided tail: smooth never touches HBM
-        from tpuimg.kernels.boxsum import enhance_tail_pallas
-
-        out = enhance_tail_pallas(f, radius, sigma, gf_radius, gf_eps)
     else:
-        smooth = gaussian(f, radius, sigma)
-        out = guided_filter(f, smooth, gf_radius, gf_eps,
-                            border="reflect101")
+        blend = clahe(img, clip_limit, tiles, tiles, _out_f32=True)
+        f = blend * jnp.float32(1.0 / 255.0)
+    smooth = gaussian(f, radius, sigma)
+    # fused-path border semantics (reflect101 + 1/ksz^2) — the reference's
+    # own 4K guided demo
+    out = guided_filter(f, smooth, gf_radius, gf_eps, border="reflect101")
     return jnp.clip(jnp.rint(out * 255.0), 0.0, 255.0).astype(jnp.uint8)
